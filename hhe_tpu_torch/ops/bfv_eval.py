@@ -1,0 +1,375 @@
+"""BFV evaluator — counterpart of ``hhe_tpu.ops.bfv_eval``.
+
+Plain functions on int32 ``[size, (B,) k, N]`` ciphertext tensors:
+
+- add/sub/negate/add_plain/multiply_plain;
+- apply_galois / rotate_rows / rotate_columns: coefficient permutation by
+  index selection on the last axis, then hybrid key-switch;
+- key-switch: RNS-digit decomposition over the data primes, inner product
+  with NTT-domain keys over q ∪ {P}, mod-down by the special prime;
+- multiply/square/relinearize: BEHZ RNS multiplication (m_tilde-corrected
+  base extension to Bsk, NTT-domain tensor product, t/Q fast floor,
+  Shenoy-Kumaresan conversion back).
+
+Every polynomial product goes through ``ntt.ntt_fwd`` / ``ntt.ntt_inv``,
+which launch the CUDA kernels for tensors on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import ntt, rns
+from .bfv import Ciphertext, Context, KSwitchKey
+from .modular import add_mod, mont_mul, neg_mod, sub_mod, to_mont_host, tree_add_mod
+from .rns import reduce_u32
+
+I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Evaluator constants (tensors derived from a Context)
+# ---------------------------------------------------------------------------
+
+
+class EvalConsts(NamedTuple):
+    q: torch.Tensor  # [k,1]
+    qi: torch.Tensor
+    bq: torch.Tensor  # [kb+1,1] Bsk moduli
+    bqi: torch.Tensor
+    # base extension q -> Bsk with m_tilde correction
+    mtilde_inv_mont: torch.Tensor  # [k,1] Mont(inv_j * m_tilde mod q_j)
+    fbc_q_to_bsk: rns.FBC
+    tilde_mod_mtilde: np.ndarray  # [k] (Q/q_j) mod 2^16 (host)
+    neg_qinv_mtilde: int  # (-Q^-1) mod 2^16
+    mtinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(m_tilde^-1 mod b)
+    q_mtinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(Q * m_tilde^-1 mod b)
+    # fast floor
+    t_mont_q: torch.Tensor  # [k,1]
+    t_mont_bsk: torch.Tensor  # [kb+1,1]
+    qinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(Q^-1 mod b)
+    # Shenoy-Kumaresan Bsk -> q
+    fbc_b_to_q: rns.FBC
+    fbc_b_to_msk: rns.FBC
+    binv_msk_mont: torch.Tensor  # [1,1] Mont(B^-1 mod m_sk)
+    msk: int
+    msk_half: int
+    msk_mod_q: torch.Tensor  # [k,1]
+    b_mod_q_mont: torch.Tensor  # [k,1] Mont(B mod q)
+    # key-switch mod-down
+    p_mod_q: torch.Tensor  # [k,1]
+    p_half: int
+    p_inv_mont: torch.Tensor  # [k,1]
+
+
+def _col(vals, device) -> torch.Tensor:
+    return torch.tensor([int(v) for v in vals], dtype=I64, device=device).reshape(-1, 1)
+
+
+def _mont_col(vals, moduli, device) -> torch.Tensor:
+    return _col(
+        [to_mont_host(np.uint64(v % m), m) for v, m in zip(vals, moduli)], device
+    )
+
+
+def eval_consts(ctx: Context) -> EvalConsts:
+    if ctx._eval_consts is None:
+        ctx._eval_consts = _build_eval_consts(ctx)
+    return ctx._eval_consts
+
+
+def _build_eval_consts(ctx: Context) -> EvalConsts:
+    dev = ctx.device
+    q_mods = ctx.q_moduli
+    bsk_mods = ctx.base_bsk.moduli
+    Q = ctx.Q
+    mt = ctx.m_tilde
+    B = ctx.base_b.Q
+    msk = ctx.m_sk
+    return EvalConsts(
+        q=ctx.tb_q.q,
+        qi=ctx.tb_q.qinv_neg,
+        bq=ctx.tb_bsk.q,
+        bqi=ctx.tb_bsk.qinv_neg,
+        mtilde_inv_mont=_mont_col([inv * mt for inv in ctx.base_q.inv], q_mods, dev),
+        fbc_q_to_bsk=rns.build_fbc(ctx.base_q, bsk_mods, dev),
+        tilde_mod_mtilde=np.array([t % mt for t in ctx.base_q.tilde], np.uint32),
+        neg_qinv_mtilde=(-pow(Q, -1, mt)) % mt,
+        mtinv_bsk_mont=_mont_col([pow(mt, -1, b) for b in bsk_mods], bsk_mods, dev),
+        q_mtinv_bsk_mont=_mont_col([Q * pow(mt, -1, b) for b in bsk_mods], bsk_mods, dev),
+        t_mont_q=_mont_col([ctx.t] * len(q_mods), q_mods, dev),
+        t_mont_bsk=_mont_col([ctx.t] * len(bsk_mods), bsk_mods, dev),
+        qinv_bsk_mont=_mont_col([pow(Q, -1, b) for b in bsk_mods], bsk_mods, dev),
+        fbc_b_to_q=rns.build_fbc(ctx.base_b, q_mods, dev),
+        fbc_b_to_msk=rns.build_fbc(ctx.base_b, (msk,), dev),
+        binv_msk_mont=_mont_col([pow(B, -1, msk)], (msk,), dev),
+        msk=msk,
+        msk_half=msk // 2,
+        msk_mod_q=_col([msk % q for q in q_mods], dev),
+        b_mod_q_mont=_mont_col([B] * len(q_mods), q_mods, dev),
+        p_mod_q=_col([ctx.p_special % q for q in q_mods], dev),
+        p_half=ctx.p_special // 2,
+        p_inv_mont=ctx.p_inv_mont,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Linear ops
+# ---------------------------------------------------------------------------
+
+
+def add(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    q = ctx.tb_q.q
+    sa, sb = a.size, b.size
+    if sa == sb:
+        return Ciphertext(add_mod(a.data, b.data, q))
+    big, small = (a, b) if sa > sb else (b, a)
+    head = add_mod(big.data[: small.size], small.data, q)
+    return Ciphertext(torch.cat([head, big.data[small.size :]], 0))
+
+
+def sub(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    if a.size != b.size:
+        raise ValueError(f"sub needs equal sizes, got {a.size} and {b.size}")
+    return Ciphertext(sub_mod(a.data, b.data, ctx.tb_q.q))
+
+
+def negate(ctx: Context, a: Ciphertext) -> Ciphertext:
+    return Ciphertext(neg_mod(a.data, ctx.tb_q.q))
+
+
+def add_plain(ctx: Context, a: Ciphertext, pt_dev: torch.Tensor) -> Ciphertext:
+    """pt_dev = Context.plain_for_add(pt): [k, N] scaled round(Q m / t)."""
+    c0 = add_mod(a.data[0], pt_dev, ctx.tb_q.q)
+    return Ciphertext(torch.cat([c0[None], a.data[1:]], 0))
+
+
+def multiply_plain(ctx: Context, a: Ciphertext, pt_ntt_mont: torch.Tensor) -> Ciphertext:
+    """pt_ntt_mont = Context.plain_for_mul(pt): [k, N] NTT+Mont."""
+    f = ntt.ntt_fwd(a.data, ctx.tb_q)
+    g = mont_mul(f, pt_ntt_mont, ctx.tb_q.q, ctx.tb_q.qinv_neg)
+    return Ciphertext(ntt.ntt_inv(g, ctx.tb_q))
+
+
+# ---------------------------------------------------------------------------
+# NTT-domain galois permutations (for hoisted rotations)
+# ---------------------------------------------------------------------------
+
+
+def ntt_galois_src(ctx: Context, g: int) -> np.ndarray:
+    """Permutation of NTT-domain (bit-reversed evaluation order) indices
+    realizing x(X) -> x(X^g): out[s] = in[src[s]], no sign flips."""
+    cache = ctx._ntt_perm_cache
+    if g in cache:
+        return cache[g]
+    n, m = ctx.n, 2 * ctx.n
+    rev = ntt.bit_reverse_indices(n)
+    j = np.arange(n, dtype=np.int64)
+    h_in = ((2 * j + 1) * g) % m  # out slot rev[j] evaluates at psi^(2j+1)
+    src = np.empty(n, np.int64)
+    src[rev[j]] = rev[(h_in - 1) // 2]
+    cache[g] = src
+    return src
+
+
+# ---------------------------------------------------------------------------
+# Key switching (hybrid, one special prime)
+# ---------------------------------------------------------------------------
+
+
+def _digits(ctx: Context, poly_q: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Limbs start..stop-1 of poly_q, each reduced mod every modulus of
+    q ∪ P: [..., k, N] -> [..., stop-start, k+1, N]."""
+    pq = ctx.tb_qp.q
+    return torch.stack(
+        [reduce_u32(poly_q[..., j : j + 1, :], pq) for j in range(start, stop)], dim=-3
+    )
+
+
+def hoist_digits(ctx: Context, poly_q: torch.Tensor) -> torch.Tensor:
+    """RNS digit decomposition + NTT, done once per ciphertext so many
+    rotations can share it: [..., k, N] -> [..., k, k+1, N]."""
+    return ntt.ntt_fwd(_digits(ctx, poly_q, 0, ctx.k), ctx.tb_qp)
+
+
+def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey):
+    """Inner products of (permuted) hoisted digits with one rotation's keys:
+    [..., k, k+1, N] NTT digits -> (h0, h1) [..., k+1, N] NTT over q ∪ P."""
+    qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
+    t0 = mont_mul(fd_perm, ksk.k0, qp, qpi)
+    t1 = mont_mul(fd_perm, ksk.k1, qp, qpi)
+    acc0 = tree_add_mod(t0, qp, axis=-3)[..., 0, :, :]
+    acc1 = tree_add_mod(t1, qp, axis=-3)[..., 0, :, :]
+    return acc0, acc1
+
+
+def mod_down(ctx: Context, c: torch.Tensor) -> torch.Tensor:
+    """Divide-and-round by the special prime: [..., k+1, N] coeff over q ∪ P
+    -> [..., k, N] over q."""
+    ec = eval_consts(ctx)
+    xp = c[..., -1:, :]
+    a1 = reduce_u32(xp, ec.q)
+    fix = torch.where(xp > ec.p_half, sub_mod(a1, ec.p_mod_q, ec.q), a1)
+    return mont_mul(sub_mod(c[..., :-1, :], fix, ec.q), ec.p_inv_mont, ec.q, ec.qi)
+
+
+def keyswitch(
+    ctx: Context,
+    poly_q: torch.Tensor,
+    ksk: KSwitchKey,
+    digit_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """poly_q [..., k, N] coeff mod q -> (d0, d1) [..., k, N] coeff mod q such
+    that d0 + d1*s ~= poly * target (+ small noise).
+
+    ``digit_chunk`` processes the decomposition digits in groups of that
+    size, bounding the hoisted-digit temporary; modular adds are exact so
+    the regrouped accumulation is bit-identical."""
+    if digit_chunk is None or digit_chunk >= ctx.k:
+        acc0, acc1 = hoisted_ks_products(ctx, hoist_digits(ctx, poly_q), ksk)
+    else:
+        qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
+        acc0 = acc1 = None
+        for s in range(0, ctx.k, digit_chunk):
+            e = min(s + digit_chunk, ctx.k)
+            fd = ntt.ntt_fwd(_digits(ctx, poly_q, s, e), ctx.tb_qp)
+            t0 = mont_mul(fd, ksk.k0[s:e], qp, qpi)
+            t1 = mont_mul(fd, ksk.k1[s:e], qp, qpi)
+            p0 = tree_add_mod(t0, qp, axis=-3)[..., 0, :, :]
+            p1 = tree_add_mod(t1, qp, axis=-3)[..., 0, :, :]
+            acc0 = p0 if acc0 is None else add_mod(acc0, p0, qp)
+            acc1 = p1 if acc1 is None else add_mod(acc1, p1, qp)
+    c0 = ntt.ntt_inv(acc0, ctx.tb_qp)
+    c1 = ntt.ntt_inv(acc1, ctx.tb_qp)
+    return mod_down(ctx, c0), mod_down(ctx, c1)
+
+
+def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey) -> Ciphertext:
+    """x(X) -> x(X^g) on a size-2 ciphertext + key-switch back to s."""
+    if ct.size != 2:
+        raise ValueError("relinearize before rotating")
+    src, sign = ctx.galois_perm(g)
+    q = ctx.tb_q.q
+    dev = ct.data.device
+    perm = ct.data[..., torch.as_tensor(src, device=dev)]
+    perm = torch.where(torch.as_tensor(sign, device=dev), neg_mod(perm, q), perm)
+    d0, d1 = keyswitch(ctx, perm[1], gk)
+    return Ciphertext(torch.stack([add_mod(perm[0], d0, q), d1]))
+
+
+def rotate_rows(ctx: Context, ct: Ciphertext, step: int, gks: Dict[int, KSwitchKey]) -> Ciphertext:
+    """Rotate both rows left by `step` slots (SEAL rotate_rows semantics)."""
+    g = ctx.galois_elt_from_step(step)
+    return apply_galois(ctx, ct, g, gks[g])
+
+
+def rotate_columns(ctx: Context, ct: Ciphertext, gks: Dict[int, KSwitchKey]) -> Ciphertext:
+    g = 2 * ctx.n - 1
+    return apply_galois(ctx, ct, g, gks[g])
+
+
+def relinearize(
+    ctx: Context,
+    ct: Ciphertext,
+    rk: KSwitchKey,
+    digit_chunk: Optional[int] = None,
+) -> Ciphertext:
+    """Size-3 -> size-2 using the relin key (target s^2)."""
+    if ct.size != 3:
+        raise ValueError(f"relinearize needs a size-3 ciphertext, got {ct.size}")
+    q = ctx.tb_q.q
+    d0, d1 = keyswitch(ctx, ct.data[2], rk, digit_chunk=digit_chunk)
+    return Ciphertext(
+        torch.stack([add_mod(ct.data[0], d0, q), add_mod(ct.data[1], d1, q)])
+    )
+
+
+# ---------------------------------------------------------------------------
+# BEHZ ct x ct multiplication
+# ---------------------------------------------------------------------------
+
+
+def _to_bsk(ctx: Context, x: torch.Tensor) -> torch.Tensor:
+    """[..., k, N] mod q -> [..., kb+1, N] mod Bsk, m_tilde-corrected so the
+    result represents the centered value of x (+/- a single q overflow)."""
+    ec = eval_consts(ctx)
+    tmp = mont_mul(x, ec.mtilde_inv_mont, ec.q, ec.qi)  # digits of x * m_tilde
+    cb = rns.fbc_from_digits(tmp, ec.fbc_q_to_bsk)
+    cm = rns.fbc_digits_to_pow2(tmp, ec.tilde_mod_mtilde, ctx.m_tilde_bits)
+    r = (cm.to(I64) * ec.neg_qinv_mtilde) & (ctx.m_tilde - 1)
+    # centered r as residue mod each Bsk modulus (b > 2^16 always)
+    r = r[..., None, :]
+    r_mod_b = torch.where(r < ctx.m_tilde // 2, r, r + (ec.bq - ctx.m_tilde))
+    return add_mod(
+        mont_mul(cb, ec.mtinv_bsk_mont, ec.bq, ec.bqi),
+        mont_mul(r_mod_b, ec.q_mtinv_bsk_mont, ec.bq, ec.bqi).to(x.dtype),
+        ec.bq,
+    )
+
+
+def _bsk_to_q(ctx: Context, x_bsk: torch.Tensor) -> torch.Tensor:
+    """Exact Shenoy-Kumaresan conversion [..., kb+1, N] Bsk -> [..., k, N] q."""
+    ec = eval_consts(ctx)
+    x_b = x_bsk[..., :-1, :]
+    x_msk = x_bsk[..., -1:, :]
+    digs = rns.fbc_digits(x_b, ec.fbc_b_to_q)
+    y_q = rns.fbc_from_digits(digs, ec.fbc_b_to_q)
+    y_msk = rns.fbc_from_digits(digs, ec.fbc_b_to_msk)
+    msk_q = ec.fbc_b_to_msk.c_q
+    msk_qi = ec.fbc_b_to_msk.c_qinv
+    alpha = mont_mul(
+        sub_mod(y_msk, x_msk, msk_q), ec.binv_msk_mont, msk_q, msk_qi
+    )  # [...,1,N] in [0, m_sk)
+    a1 = reduce_u32(alpha, ec.q)
+    alpha_c = torch.where(alpha > ec.msk_half, sub_mod(a1, ec.msk_mod_q, ec.q), a1)
+    corr = mont_mul(alpha_c, ec.b_mod_q_mont, ec.q, ec.qi)
+    return sub_mod(y_q, corr, ec.q)
+
+
+def _tensor(fa: torch.Tensor, fb_mont: torch.Tensor, q, qi) -> torch.Tensor:
+    """NTT-domain tensor product of ciphertexts sized s1, s2 -> s1+s2-1."""
+    s1, s2 = fa.shape[0], fb_mont.shape[0]
+    out = []
+    for d in range(s1 + s2 - 1):
+        acc = None
+        for i in range(max(0, d - s2 + 1), min(s1, d + 1)):
+            t = mont_mul(fa[i], fb_mont[d - i], q, qi)
+            acc = t if acc is None else add_mod(acc, t, q)
+        out.append(acc)
+    return torch.stack(out)
+
+
+def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """BFV multiply: round(t/Q * (a ⊗ b)), result size a.size+b.size-1."""
+    ec = eval_consts(ctx)
+    a_bsk = _to_bsk(ctx, a.data)
+    b_bsk = _to_bsk(ctx, b.data)
+    fa_q = ntt.ntt_fwd(a.data, ctx.tb_q)
+    fb_q = ntt.to_mont(ntt.ntt_fwd(b.data, ctx.tb_q), ctx.tb_q)
+    fa_b = ntt.ntt_fwd(a_bsk, ctx.tb_bsk)
+    fb_b = ntt.to_mont(ntt.ntt_fwd(b_bsk, ctx.tb_bsk), ctx.tb_bsk)
+    x_q = ntt.ntt_inv(_tensor(fa_q, fb_q, ec.q, ec.qi), ctx.tb_q)
+    x_b = ntt.ntt_inv(_tensor(fa_b, fb_b, ec.bq, ec.bqi), ctx.tb_bsk)
+    # fast floor of t*x / Q in Bsk
+    tx_q = mont_mul(x_q, ec.t_mont_q, ec.q, ec.qi)
+    tx_b = mont_mul(x_b, ec.t_mont_bsk, ec.bq, ec.bqi)
+    f = rns.fbc_apply(tx_q, ec.fbc_q_to_bsk)
+    y_b = mont_mul(sub_mod(tx_b, f, ec.bq), ec.qinv_bsk_mont, ec.bq, ec.bqi)
+    return Ciphertext(_bsk_to_q(ctx, y_b))
+
+
+def square(ctx: Context, a: Ciphertext) -> Ciphertext:
+    return multiply(ctx, a, a)
+
+
+def exponentiate(ctx: Context, a: Ciphertext, e: int, rk: KSwitchKey) -> Ciphertext:
+    """Repeated multiply + relinearize (reference Evaluator::exponentiate)."""
+    if e < 1:
+        raise ValueError(f"exponent {e} must be >= 1")
+    out = a
+    for _ in range(e - 1):
+        out = relinearize(ctx, multiply(ctx, out, a), rk)
+    return out

@@ -1,0 +1,157 @@
+"""Modular arithmetic on RNS residues in PyTorch — counterpart of
+``hhe_tpu.ops.modular``.
+
+Residues are stored as ``torch.int32`` (every modulus is below 2^31, so the
+bits equal the JAX package's ``uint32`` arrays).  Arithmetic widens to
+``torch.int64``: a product of two values below 2^32 and 2^31 is exact there,
+which replaces the JAX package's 16-bit-digit products.  Montgomery reduction
+(R = 2^32) is carried out exactly as the JAX version does it, so even the lazy
+form (``mont_mul_lazy``, result in [0, 2q)) gives the same bits:
+
+- ``lo * qinv_neg mod 2^32`` is formed from 16-bit halves of ``lo`` so that no
+  product reaches 2^63 (signed int64 overflow is never relied on);
+- ``m * q`` and ``a * b`` stay below 2^63.
+
+Every function returns the dtype of its first tensor argument; tables and
+constants are int64 ``[k, 1]`` columns that broadcast against ``[..., k, N]``.
+``host`` is the numpy u64 golden model.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK16 = 0xFFFF
+MASK32 = 0xFFFFFFFF
+I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Host-side constant preparation (numpy, exact)
+# ---------------------------------------------------------------------------
+
+
+def mont_constants(q: int):
+    """Montgomery constants for modulus q < 2^31 (R = 2^32).
+
+    Returns (qinv_neg, r1, r2): -q^{-1} mod 2^32, R mod q, R^2 mod q.
+    """
+    q = int(q)
+    if not (q % 2 == 1 and 1 < q < (1 << 31)):
+        raise ValueError(f"modulus {q} must be odd and below 2^31")
+    qinv = pow(q, -1, 1 << 32)
+    qinv_neg = ((1 << 32) - qinv) & MASK32
+    r1 = (1 << 32) % q
+    r2 = pow(1 << 32, 2, q)
+    return np.uint32(qinv_neg), np.uint32(r1), np.uint32(r2)
+
+
+def to_mont_host(a, q: int) -> np.ndarray:
+    """Host: standard -> Montgomery domain (a * 2^32 mod q), exact numpy."""
+    a = np.asarray(a, dtype=np.uint64)
+    return ((a << np.uint64(32)) % np.uint64(q)).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Tensor primitives
+# ---------------------------------------------------------------------------
+
+
+def _w(x):
+    """Widen a tensor to int64 (Python ints pass through)."""
+    return x.to(I64) if isinstance(x, torch.Tensor) else x
+
+
+def _like(out, a):
+    return out.to(a.dtype) if isinstance(a, torch.Tensor) else out
+
+
+def _redc(a, b, q, qinv_neg):
+    """a * b * 2^-32 mod q in [0, 2q) (Montgomery REDC), in int64.
+
+    Needs a < 2^32, b < 2^31 and a * b < q * 2^32."""
+    ab = _w(a) * _w(b)
+    hi = ab >> 32
+    lo = ab & MASK32
+    qi = _w(qinv_neg)
+    m = ((lo & MASK16) * qi + ((((lo >> 16) * qi) & MASK16) << 16)) & MASK32
+    mhi = (m * _w(q)) >> 32
+    return hi + mhi + (lo != 0).to(I64)
+
+
+def mont_mul(a, b_mont, q, qinv_neg):
+    """Montgomery product: a * b_mont * 2^-32 mod q, in [0, q)."""
+    t = _redc(a, b_mont, q, qinv_neg)
+    q = _w(q)
+    return _like(torch.where(t >= q, t - q, t), a)
+
+
+def mont_mul_lazy(a, b_mont, q, qinv_neg):
+    """Montgomery product without the final subtract: [0, 2q) (Harvey lazy
+    form).  Admits any a < 2^32 when b_mont < q < 2^30."""
+    return _like(_redc(a, b_mont, q, qinv_neg), a)
+
+
+def add_mod(a, b, q):
+    s = _w(a) + _w(b)
+    q = _w(q)
+    return _like(torch.where(s >= q, s - q, s), a)
+
+
+def sub_mod(a, b, q):
+    a64, b64 = _w(a), _w(b)
+    return _like(torch.where(a64 >= b64, a64 - b64, a64 + _w(q) - b64), a)
+
+
+def neg_mod(a, q):
+    a64 = _w(a)
+    return _like(torch.where(a64 == 0, a64, _w(q) - a64), a)
+
+
+def tree_add_mod(t, q, axis=0):
+    """Log-depth modular sum along ``axis`` (keeps the axis, size 1)."""
+    axis = axis % t.ndim
+    n = t.shape[axis]
+    if n & (n - 1):  # pad once to a power of two (0 is the add_mod identity)
+        pad_shape = list(t.shape)
+        pad_shape[axis] = (1 << n.bit_length()) - n
+        t = torch.cat([t, t.new_zeros(pad_shape)], dim=axis)
+    while t.shape[axis] > 1:
+        half = t.shape[axis] // 2
+        t = add_mod(t.narrow(axis, 0, half), t.narrow(axis, half, half), q)
+    return t
+
+
+def to_mont(a, r2_mont, q, qinv_neg):
+    """Standard -> Montgomery domain via mont_mul with R^2."""
+    return mont_mul(a, r2_mont, q, qinv_neg)
+
+
+def from_mont(a_mont, q, qinv_neg):
+    """Montgomery -> standard domain (a_mont * 2^-32 mod q)."""
+    return mont_mul(a_mont, 1, q, qinv_neg)
+
+
+# ---------------------------------------------------------------------------
+# Host golden model (numpy u64, products exact for q < 2^31)
+# ---------------------------------------------------------------------------
+
+
+class host:
+    @staticmethod
+    def mul_mod(a, b, q):
+        return (np.asarray(a, np.uint64) * np.asarray(b, np.uint64)) % np.uint64(q)
+
+    @staticmethod
+    def add_mod(a, b, q):
+        return (np.asarray(a, np.uint64) + np.asarray(b, np.uint64)) % np.uint64(q)
+
+    @staticmethod
+    def sub_mod(a, b, q):
+        qq = np.uint64(q)
+        return (np.asarray(a, np.uint64) + qq - np.asarray(b, np.uint64) % qq) % qq
+
+    @staticmethod
+    def pow_mod(a, e, q):
+        return np.uint64(pow(int(a), int(e), int(q)))

@@ -1,0 +1,286 @@
+"""Negacyclic NTT over RNS limbs — counterpart of ``hhe_tpu.ops.ntt``.
+
+Same conventions as the JAX package: merged-psi iterative NTT (Cooley-Tukey
+forward, Gentleman-Sande inverse) with twiddles in bit-reversed order and
+Montgomery form; forward maps natural -> bit-reversed order, inverse maps
+bit-reversed -> natural.  Tensors are int32 ``[..., k, N]`` residues.
+
+``ntt_fwd`` / ``ntt_inv`` dispatch on the tensor's device: a CUDA tensor goes
+to the hand-written kernels of ``ntt_kernels`` (which raise on anything they
+do not take), a CPU tensor to the plain PyTorch stage loop below
+(``ntt_fwd_plain`` / ``ntt_inv_plain``, the counterparts of
+``_ntt_fwd_xla`` / ``_ntt_inv_xla``).  The host numpy NTT at the end serves
+keygen, encrypt, encode and decrypt.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import modular, primes
+
+I64 = torch.int64
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    logn = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
+def u32_to_torch(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy array -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def u32_to_numpy(x) -> np.ndarray:
+    """int32 tensor (or any array of residues) -> numpy uint32, same bits."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.int32).cpu().numpy().view(np.uint32)
+    return np.asarray(x).astype(np.uint32)
+
+
+class NttTables(NamedTuple):
+    """Per-limb-set NTT tables on one device."""
+
+    moduli: Tuple[int, ...]
+    q: torch.Tensor  # [k, 1] int64 moduli
+    qinv_neg: torch.Tensor  # [k, 1] int64 (-q^-1 mod 2^32)
+    r2: torch.Tensor  # [k, 1] int64 (2^64 mod q, for to_mont)
+    psi_br: torch.Tensor  # [k, N] int32 Montgomery-domain psi^bitrev(i)
+    ipsi_br: torch.Tensor  # [k, N] int32 Montgomery-domain psi^-bitrev(i)
+    ninv: torch.Tensor  # [k, 1] int64 Montgomery-domain N^-1
+    # the same constants as flat 32-bit words, the kernels' operands
+    q32: torch.Tensor  # [k] int32
+    qinv32: torch.Tensor  # [k] int32 bit pattern of qinv_neg
+    ninv32: torch.Tensor  # [k] int32
+    lazy: bool  # every modulus < 2^30: the kernels may reduce lazily
+
+
+@functools.lru_cache(maxsize=32)
+def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
+    """Host-precomputed tables for the given RNS moduli and polynomial degree."""
+    moduli = tuple(int(q) for q in moduli)
+    k = len(moduli)
+    rev = bit_reverse_indices(n)
+    q_arr = np.zeros((k, 1), np.uint32)
+    qi_arr = np.zeros((k, 1), np.uint32)
+    r2_arr = np.zeros((k, 1), np.uint32)
+    psi_t = np.zeros((k, n), np.uint32)
+    ipsi_t = np.zeros((k, n), np.uint32)
+    ninv_t = np.zeros((k, 1), np.uint32)
+    for i, q in enumerate(moduli):
+        qinv_neg, r1, r2 = modular.mont_constants(q)
+        psi = primes.root_of_unity(2 * n, q)
+        ipsi = pow(psi, -1, q)
+        pw = np.empty(n, np.uint64)
+        ipw = np.empty(n, np.uint64)
+        cur, icur = 1, 1
+        for j in range(n):
+            pw[j] = cur
+            ipw[j] = icur
+            cur = cur * psi % q
+            icur = icur * ipsi % q
+        q_arr[i, 0] = q
+        qi_arr[i, 0] = qinv_neg
+        r2_arr[i, 0] = r2
+        psi_t[i] = modular.to_mont_host(pw[rev], q)
+        ipsi_t[i] = modular.to_mont_host(ipw[rev], q)
+        ninv_t[i, 0] = modular.to_mont_host(np.uint64(pow(n, -1, q)), q)
+
+    def col(a):
+        return torch.from_numpy(a.astype(np.int64)).to(device)
+
+    return NttTables(
+        moduli=moduli,
+        q=col(q_arr),
+        qinv_neg=col(qi_arr),
+        r2=col(r2_arr),
+        psi_br=u32_to_torch(psi_t, device),
+        ipsi_br=u32_to_torch(ipsi_t, device),
+        ninv=col(ninv_t),
+        q32=u32_to_torch(q_arr[:, 0], device),
+        qinv32=u32_to_torch(qi_arr[:, 0], device),
+        ninv32=u32_to_torch(ninv_t[:, 0], device),
+        lazy=all(q < (1 << 30) for q in moduli),
+    )
+
+
+def ntt_fwd(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Forward negacyclic NTT, natural -> bit-reversed order.
+
+    x: [..., k, N] residues in standard domain; returns int32 of that shape."""
+    x = x.to(torch.int32)
+    if x.device.type == "cpu":
+        return ntt_fwd_plain(x, tb)
+    from . import ntt_kernels
+
+    return ntt_kernels.ntt_fwd(x.contiguous(), tb)
+
+
+def ntt_inv(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Inverse negacyclic NTT, bit-reversed -> natural order."""
+    x = x.to(torch.int32)
+    if x.device.type == "cpu":
+        return ntt_inv_plain(x, tb)
+    from . import ntt_kernels
+
+    return ntt_kernels.ntt_inv(x.contiguous(), tb)
+
+
+def ntt_fwd_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Plain PyTorch forward NTT (CT butterflies, merged psi), in int64:
+    the stage loop of ``hhe_tpu.ops.ntt._ntt_fwd_xla``."""
+    *lead, k, n = x.shape
+    q = tb.q[..., None]  # [k,1,1]
+    qi = tb.qinv_neg[..., None]
+    y = x.to(I64)
+    t, m = n, 1
+    while m < n:
+        t //= 2
+        yv = y.reshape(*lead, k, m, 2, t)
+        s = tb.psi_br[:, m : 2 * m].reshape(k, m, 1)
+        u = yv[..., 0, :]
+        v = modular.mont_mul(yv[..., 1, :], s, q, qi)
+        y = torch.stack(
+            [modular.add_mod(u, v, q), modular.sub_mod(u, v, q)], dim=-2
+        ).reshape(*lead, k, n)
+        m *= 2
+    return y.to(x.dtype)
+
+
+def ntt_inv_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Plain PyTorch inverse NTT (GS butterflies), in int64: the stage loop
+    of ``hhe_tpu.ops.ntt._ntt_inv_xla``."""
+    *lead, k, n = x.shape
+    q = tb.q[..., None]
+    qi = tb.qinv_neg[..., None]
+    y = x.to(I64)
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        yv = y.reshape(*lead, k, h, 2, t)
+        s = tb.ipsi_br[:, h : 2 * h].reshape(k, h, 1)
+        u = yv[..., 0, :]
+        v = yv[..., 1, :]
+        y = torch.stack(
+            [
+                modular.add_mod(u, v, q),
+                modular.mont_mul(modular.sub_mod(u, v, q), s, q, qi),
+            ],
+            dim=-2,
+        ).reshape(*lead, k, n)
+        t *= 2
+        m = h
+    return modular.mont_mul(y, tb.ninv, tb.q, tb.qinv_neg).to(x.dtype)
+
+
+def pointwise_mont(a: torch.Tensor, b_mont: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Pointwise a*b where b is already in Montgomery domain."""
+    return modular.mont_mul(a, b_mont, tb.q, tb.qinv_neg)
+
+
+def to_mont(a: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    return modular.mont_mul(a, tb.r2, tb.q, tb.qinv_neg)
+
+
+def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Full negacyclic polynomial product (both inputs standard domain, coeff order)."""
+    fa = ntt_fwd(a, tb)
+    fb = ntt_fwd(to_mont(b, tb), tb)
+    return ntt_inv(pointwise_mont(fa, fb, tb), tb)
+
+
+# ------------------------------------------------------------------
+# Host (numpy u64) NTT — used by keygen/encrypt/decrypt, party-side on CPU;
+# exact since all products are of values < 2^31.
+# ------------------------------------------------------------------
+
+
+class HostTables(NamedTuple):
+    q: int
+    psi_br: np.ndarray  # [N] u64, standard domain, bit-reversed powers
+    ipsi_br: np.ndarray
+    ninv: int
+
+
+@functools.lru_cache(maxsize=64)
+def build_host_tables(q: int, n: int) -> HostTables:
+    """q may exceed 2^32: tables then use object dtype and the host NTT runs
+    in exact Python integers."""
+    rev = bit_reverse_indices(n)
+    psi = primes.root_of_unity(2 * n, q)
+    ipsi = pow(psi, -1, q)
+    dt = np.uint64 if q < (1 << 32) else object
+    pw = np.empty(n, dt)
+    ipw = np.empty(n, dt)
+    cur, icur = 1, 1
+    for j in range(n):
+        pw[j] = cur
+        ipw[j] = icur
+        cur = cur * psi % q
+        icur = icur * ipsi % q
+    return HostTables(q, pw[rev].copy(), ipw[rev].copy(), pow(n, -1, q))
+
+
+def ntt_fwd_host(x: np.ndarray, tb: HostTables) -> np.ndarray:
+    """Forward negacyclic NTT on host, natural -> bit-reversed ([..., N] u64;
+    object dtype — exact bigint — when q >= 2^32)."""
+    if tb.q >= (1 << 32):
+        x = np.asarray(x, object) % tb.q
+        q = tb.q
+    else:
+        x = np.asarray(x, np.uint64) % np.uint64(tb.q)
+        q = np.uint64(tb.q)
+    *lead, n = x.shape
+    t, m = n, 1
+    while m < n:
+        t //= 2
+        xv = x.reshape(*lead, m, 2, t)
+        s = tb.psi_br[m : 2 * m].reshape(m, 1)
+        u = xv[..., 0, :]
+        v = (xv[..., 1, :] * s) % q
+        x = np.stack([(u + v) % q, (u + q - v) % q], axis=-2).reshape(*lead, n)
+        m *= 2
+    return x
+
+
+def ntt_inv_host(x: np.ndarray, tb: HostTables) -> np.ndarray:
+    """Inverse negacyclic NTT on host, bit-reversed -> natural."""
+    if tb.q >= (1 << 32):
+        x = np.asarray(x, object)
+        q = tb.q
+    else:
+        x = np.asarray(x, np.uint64)
+        q = np.uint64(tb.q)
+    *lead, n = x.shape
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        xv = x.reshape(*lead, h, 2, t)
+        s = tb.ipsi_br[h : 2 * h].reshape(h, 1)
+        u = xv[..., 0, :]
+        v = xv[..., 1, :]
+        x = np.stack(
+            [(u + v) % q, ((u + q - v) % q * s) % q], axis=-2
+        ).reshape(*lead, n)
+        t *= 2
+        m = h
+    ninv = tb.ninv if tb.q >= (1 << 32) else np.uint64(tb.ninv)
+    return (x * ninv) % q
+
+
+def poly_mul_host(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """Negacyclic a*b mod q on host via NTT ([..., N])."""
+    tb = build_host_tables(q, a.shape[-1])
+    fa = ntt_fwd_host(a, tb)
+    fb = ntt_fwd_host(b, tb)
+    return ntt_inv_host((fa * fb) % np.uint64(q), tb)

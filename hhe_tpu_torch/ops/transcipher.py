@@ -1,0 +1,514 @@
+"""Homomorphic PASTA-3 transcipher — counterpart of ``hhe_tpu.ops.transcipher``.
+
+Evaluates PASTA-3 decryption under BFV on the HE-encrypted symmetric key,
+turning PASTA ciphertexts into BFV ciphertexts ("decomposition").
+
+- Only the SHAKE first rows of the round matrices (4 x 2 x 128 words) cross
+  from the host; the row recurrence, diagonal extraction, BSGS pre-rotation,
+  slot encoding and NTT lifting to q ∪ P run on the context's device
+  (``_expand_round_mats``).
+- The keystream ciphertext depends only on (key, nonce, block), so it is
+  computed once and cached; decomposing a batch of B samples is then one
+  batched negate + encode + add (``_finish_impl``).
+- Every galois permutation in the NTT domain is index selection on the last
+  axis (the JAX package's MXU one-hot lowering is a TPU workaround for slow
+  gathers and has no counterpart here).
+
+Packing: PASTA key/state halves live at slots ``[0..T)`` (row 0) and
+``[N/2..N/2+T)`` (row 1); `mix` is a column swap.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from . import bfv_eval, ntt, pasta, rns
+from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
+from .modular import add_mod, mont_mul, neg_mod, to_mont_host, tree_add_mod
+
+T = pasta.PASTA_T
+# BSGS split of the 128 diagonals: n1 babysteps x n2 giantsteps.  Any split
+# with n1 * n2 = 128 is bit-equivalent; this is the JAX package's default.
+BSGS_N1 = 32
+BSGS_N2 = 4
+I64 = torch.int64
+
+
+def galois_elts(ctx: Context, use_bsgs: bool = True) -> List[int]:
+    """Galois elements the transcipher needs: rotate -1, column swap, +T when
+    the packing is not full, and for the BSGS matmul the babystep elements
+    -1..-(n1-1) and giantstep elements -n1*k."""
+    elts = {ctx.galois_elt_from_step(-1), 2 * ctx.n - 1}
+    if ctx.n // 2 != T:
+        elts.add(ctx.galois_elt_from_step(T))
+    if use_bsgs:
+        for j in range(1, BSGS_N1):
+            elts.add(ctx.galois_elt_from_step(-j))
+        for k in range(1, BSGS_N2):
+            elts.add(ctx.galois_elt_from_step(-k * BSGS_N1))
+    return sorted(elts)
+
+
+def _take_rows(x: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
+    """out[j] = x[j][..., srcs[j]] for x [J, ..., N] and srcs [J, N]."""
+    idx = srcs.reshape(srcs.shape[0], *([1] * (x.dim() - 2)), srcs.shape[-1])
+    return torch.gather(x, -1, idx.expand(x.shape))
+
+
+class Transcipher:
+    """Evaluates PASTA-3 decryption under BFV (one instance per context+keys)."""
+
+    def __init__(
+        self,
+        ctx: Context,
+        rk: KSwitchKey,
+        gks: Dict[int, KSwitchKey],
+        use_bsgs: bool = True,
+    ):
+        self.ctx = ctx
+        self.rk = rk
+        self.gks_all = gks
+        self.g_neg1 = ctx.galois_elt_from_step(-1)
+        self.g_cols = 2 * ctx.n - 1
+        self.g_t = ctx.galois_elt_from_step(T) if ctx.n // 2 != T else None
+        self.gk_neg1 = gks[self.g_neg1]
+        self.gk_cols = gks[self.g_cols]
+        self.gk_t = gks[self.g_t] if self.g_t is not None else gks[self.g_neg1]
+        self.use_bsgs = use_bsgs and set(galois_elts(ctx, True)) <= set(gks)
+        if self.use_bsgs:
+            self._build_bsgs_keys(gks)
+        half = ctx.n // 2
+        mask = np.zeros(half + T, np.int64)
+        mask[1:T] = 1
+        mask[half + 1 : half + T] = 1
+        self.feistel_mask = ctx.plain_for_mul(ctx.encode(mask))
+        # bounded LRU caches: round material is ~0.5 GB per block at N=16384
+        self._pt_cache: collections.OrderedDict = collections.OrderedDict()
+        self._pt_cache_max = 4
+        # keystream cts; each value pins its enc_key tensor so that the id()
+        # in the key cannot be reused while the entry lives
+        self._ks_cache: collections.OrderedDict = collections.OrderedDict()
+        self._ks_cache_max = 64
+        self._build_expand_consts()
+
+    def _cache_put(self, cache, maxsize, key, value):
+        cache[key] = value
+        cache.move_to_end(key)
+        while len(cache) > maxsize:
+            cache.popitem(last=False)
+
+    def _build_bsgs_keys(self, gks: Dict[int, KSwitchKey]):
+        """Precompute the batched BSGS material.
+
+        Babysteps permute after the key contraction: with
+        K'_{j,d} = sigma_j^{-1}(K_{j,d}) precomputed here,
+        sum_d sigma_j(fd_d) * K_{j,d} == sigma_j(sum_d fd_d * K'_{j,d}), so
+        the hot path permutes the [k+1, N] contraction results instead of the
+        [kd, k+1, N] digit tensors."""
+        ctx = self.ctx
+        dev = ctx.device
+
+        def inv_permuted(elt: int):
+            src = bfv_eval.ntt_galois_src(ctx, elt)
+            inv = torch.as_tensor(np.argsort(src), device=dev)
+            k = gks[elt]
+            # moduli-major [k+1, kd, N] layout
+            return (
+                k.k0[..., inv].transpose(0, 1).contiguous(),
+                k.k1[..., inv].transpose(0, 1).contiguous(),
+                src,
+            )
+
+        baby = [inv_permuted(ctx.galois_elt_from_step(-j)) for j in range(1, BSGS_N1)]
+        self.baby_k0 = torch.stack([b[0] for b in baby])  # [n1-1, k+1, kd, N]
+        self.baby_k1 = torch.stack([b[1] for b in baby])
+        ident = np.arange(ctx.n)
+        # row 0 = identity: used for the rot_f0 fan-out (j = 0 term included)
+        self.baby_srcs = torch.as_tensor(
+            np.stack([ident] + [b[2] for b in baby]), device=dev
+        )  # [n1, N]
+        giant = [
+            inv_permuted(ctx.galois_elt_from_step(-k * BSGS_N1))
+            for k in range(1, BSGS_N2)
+        ]
+        self.giant_k0 = torch.stack([g[0] for g in giant])  # [n2-1, k+1, kd, N]
+        self.giant_k1 = torch.stack([g[1] for g in giant])
+        self.giant_nsrc = torch.as_tensor(np.stack([g[2] for g in giant]), device=dev)
+        csrc, csign = zip(
+            *(ctx.galois_perm(ctx.galois_elt_from_step(-k * BSGS_N1)) for k in range(1, BSGS_N2))
+        )
+        self.giant_csrc = torch.as_tensor(np.stack(csrc), device=dev)
+        self.giant_csign = torch.as_tensor(np.stack(csign), device=dev)
+
+    # ------------------------------------------------------------------
+    # Key encryption
+    # ------------------------------------------------------------------
+
+    def encrypt_key(self, pk: PublicKey, key: np.ndarray) -> Ciphertext:
+        key = np.asarray(key, np.uint64)
+        if key.shape != (pasta.KEY_SIZE,):
+            raise ValueError(f"PASTA key must have {pasta.KEY_SIZE} words")
+        half = self.ctx.n // 2
+        vec = np.zeros(half + T, np.int64)
+        vec[:T] = key[:T]
+        vec[half : half + T] = key[T:]
+        return self.ctx.encrypt(pk, self.ctx.encode(vec))
+
+    # ------------------------------------------------------------------
+    # Device round-material expansion (seeded)
+    # ------------------------------------------------------------------
+
+    def _build_expand_consts(self):
+        ctx = self.ctx
+        dev = ctx.device
+        half, n = ctx.n // 2, ctx.n
+        i_idx = np.arange(T)[:, None]
+        j_idx = np.arange(T)[None, :]
+        self._diag_sel = torch.as_tensor((j_idx + T - i_idx) % T, device=dev)  # [T(i), T(j)]
+        roll = (i_idx // BSGS_N1) * BSGS_N1 if self.use_bsgs else np.zeros_like(i_idx)
+        tgt0 = (j_idx - roll) % half  # slot within row 0
+        self._scatter_rows = torch.as_tensor(np.broadcast_to(i_idx, (T, T)).copy(), device=dev)
+        self._scatter_cols0 = torch.as_tensor(tgt0, device=dev)
+        self._scatter_cols1 = torch.as_tensor(tgt0 + half, device=dev)
+        # encoder inverse permutation: poly_br = slots[inv_map]
+        inv_map = np.empty(n, np.int64)
+        inv_map[ctx.encoder_map] = np.arange(n)
+        self._enc_inv_map = torch.as_tensor(inv_map, device=dev)
+        self._tb_t = ntt.build_tables((ctx.t,), n, dev)
+        # add_plain scaling constants of the finish: round(Q m / t) mod q_i
+        # = delta_i * m + fix with fix = floor((r m + h) / t), r = Q mod t,
+        # h = (t+1)/2
+        t = int(ctx.t)
+        self._fin_r = int(ctx.q_mod_t) % t
+        self._fin_h = (t + 1) // 2
+        self._fin_delta_mont = torch.tensor(
+            [
+                int(to_mont_host(np.uint64(int(d) % int(q)), int(q)))
+                for d, q in zip(ctx.delta_mod_q, ctx.q_moduli)
+            ],
+            dtype=I64,
+            device=dev,
+        ).reshape(ctx.k, 1)
+
+    def _expand_round_mats(self, first_rows: torch.Tensor) -> torch.Tensor:
+        """first_rows int32 [8, T] (4 rounds x (mat1, mat2)) -> NTT+Mont
+        plaintext diagonals over q ∪ P: [4, T, k+1, N]."""
+        ctx = self.ctx
+        t_q, t_qi, t_r2 = self._tb_t.q[0], self._tb_t.qinv_neg[0], self._tb_t.r2[0]
+
+        first_m = mont_mul(first_rows, t_r2, t_q, t_qi)  # Mont domain
+        # row recurrence row[j] = first[j]*prev[T-1] + prev[j-1]  (mod t)
+        rows = [first_rows]
+        prev = first_rows
+        zero = torch.zeros_like(first_rows[:, :1])
+        for _ in range(T - 1):
+            prod = mont_mul(first_m, prev[:, T - 1 : T], t_q, t_qi)
+            prev = add_mod(prod, torch.cat([zero, prev[:, :-1]], dim=1), t_q)
+            rows.append(prev)
+        mats = torch.stack(rows, 1)  # [8, T(row), T(col)]
+
+        # diagonals: d[s, i, j] = mats[s, j, (j+T-i)%T]
+        dev = first_rows.device
+        d = mats[
+            torch.arange(8, device=dev)[:, None, None],
+            torch.arange(T, device=dev)[None, None, :],
+            self._diag_sel[None, :, :],
+        ]  # [8, T(i), T(j)]
+        # scatter into slot rows with BSGS pre-rotation; mat1 and mat2 have
+        # disjoint supports, so their sum is their union
+        slot_vecs = torch.zeros((4, T, ctx.n), dtype=first_rows.dtype, device=dev)
+        slot_vecs[:, self._scatter_rows, self._scatter_cols0] = d[0::2]
+        slot_vecs[:, self._scatter_rows, self._scatter_cols1] = d[1::2]
+
+        # encode: slots -> bit-reversed order -> inverse NTT mod t
+        poly_br = slot_vecs[..., self._enc_inv_map]
+        poly = ntt.ntt_inv(poly_br[..., None, :], self._tb_t)[..., 0, :]  # [4,T,N] mod t
+
+        # lift to q ∪ P: reduce, forward NTT, to Montgomery
+        lifted = rns.reduce_u32(poly[..., None, :], ctx.tb_qp.q)  # [4, T, k+1, N]
+        f = ntt.ntt_fwd(lifted, ctx.tb_qp)
+        return ntt.to_mont(f, ctx.tb_qp)
+
+    def block_first_rows(self, nonce: int, b: int) -> torch.Tensor:
+        """Host: the tiny SHAKE seed material [8, T] for one block."""
+        mats1, mats2, _, _ = pasta.block_randomness(self.ctx.t, nonce, b)
+        out = np.empty((8, T), np.uint32)
+        for r in range(4):
+            out[2 * r] = mats1[r][0]
+            out[2 * r + 1] = mats2[r][0]
+        return self.ctx.to_device(out)
+
+    def block_rcs(self, nonce: int, b: int) -> torch.Tensor:
+        """Host: scaled round-constant plaintexts [4, k, N] (small)."""
+        ctx = self.ctx
+        half = ctx.n // 2
+        _, _, rcs1, rcs2 = pasta.block_randomness(ctx.t, nonce, b)
+        rc_vecs = np.zeros((4, half + T), np.uint64)
+        for r in range(4):
+            rc_vecs[r, :T] = rcs1[r]
+            rc_vecs[r, half : half + T] = rcs2[r]
+        return ctx.plain_for_add_batch(ctx.encode_batch(rc_vecs))
+
+    def _keystream_seeded_impl(self, key_data, first_rows, rcs_pt, keys):
+        """Keystream with device round-material expansion."""
+        return self._keystream_impl(
+            key_data, self._expand_round_mats(first_rows), rcs_pt, keys
+        )
+
+    # ------------------------------------------------------------------
+    # Homomorphic building blocks
+    # ------------------------------------------------------------------
+
+    def _keys(self):
+        base = (self.rk, self.gk_neg1, self.gk_t, self.gk_cols)
+        if self.use_bsgs:
+            return base + (
+                (self.baby_k0, self.baby_k1, self.baby_srcs),
+                (
+                    self.giant_k0,
+                    self.giant_k1,
+                    self.giant_nsrc,
+                    self.giant_csrc,
+                    self.giant_csign,
+                ),
+            )
+        return base
+
+    def round_mats(self, mats: torch.Tensor, r: int):
+        """Round r of the expanded [4, T, k+1, N] bundle: (q part, q ∪ P)
+        for BSGS, the q part alone for the diagonal matmul."""
+        m = mats[r]
+        return (m[..., : self.ctx.k, :], m) if self.use_bsgs else m[..., : self.ctx.k, :]
+
+    def _matmul(self, st: Ciphertext, mats, keys) -> Ciphertext:
+        if self.use_bsgs:
+            return self._matmul_bsgs(st, mats, keys)
+        return self._matmul_diag(st, mats, keys)
+
+    def _matmul_diag(self, st: Ciphertext, mats: torch.Tensor, keys) -> Ciphertext:
+        """Packed two-matrix diagonal product: T-1 sequential rotations."""
+        ctx = self.ctx
+        gk_neg1, gk_t = keys[1], keys[2]
+        if self.g_t is not None:
+            st = bfv_eval.add(ctx, st, bfv_eval.apply_galois(ctx, st, self.g_t, gk_t))
+        acc = bfv_eval.multiply_plain(ctx, st, mats[0])
+        for diag in mats[1:]:
+            st = bfv_eval.apply_galois(ctx, st, self.g_neg1, gk_neg1)
+            acc = bfv_eval.add(ctx, acc, bfv_eval.multiply_plain(ctx, st, diag))
+        return acc
+
+    def _matmul_bsgs(self, st: Ciphertext, mats, keys) -> Ciphertext:
+        """Babystep-giantstep matmul with one hoisted digit decomposition per
+        matmul, permute-after-contraction babysteps, all babysteps and
+        giantstep groups batched, and lazy mod-down over q ∪ P."""
+        ctx = self.ctx
+        n1, n2 = BSGS_N1, BSGS_N2
+        mats_q, mats_qp = mats  # [T, k, N], [T, k+1, N]
+        gk_t = keys[2]
+        baby_k0, baby_k1, baby_srcs = keys[4]
+        giant_k0, giant_k1, giant_nsrc, giant_csrc, giant_csign = keys[5]
+        q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
+        qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
+
+        if self.g_t is not None:
+            st = bfv_eval.add(ctx, st, bfv_eval.apply_galois(ctx, st, self.g_t, gk_t))
+
+        f01 = ntt.ntt_fwd(st.data, ctx.tb_q)  # one call for both components
+        f0, f1 = f01[0], f01[1]
+        fd = bfv_eval.hoist_digits(ctx, st.data[1])  # [kd, k+1, N] NTT(qP)
+        fd_t = fd.transpose(-3, -2)  # moduli-major [k+1, kd, N]
+
+        # all n1 NTT-domain rotations of f0 at once (row 0 = identity)
+        rot_f0 = f0[:, baby_srcs].transpose(0, 1)  # [n1, k, N]
+
+        def contract(fdig_t, k0s, k1s):
+            t0 = mont_mul(fdig_t[..., 0, :], k0s[..., 0, :], qp, qpi)
+            t1 = mont_mul(fdig_t[..., 0, :], k1s[..., 0, :], qp, qpi)
+            for d in range(1, ctx.k):
+                t0 = add_mod(t0, mont_mul(fdig_t[..., d, :], k0s[..., d, :], qp, qpi), qp)
+                t1 = add_mod(t1, mont_mul(fdig_t[..., d, :], k1s[..., d, :], qp, qpi), qp)
+            return t0, t1
+
+        b0, b1 = contract(fd_t, baby_k0, baby_k1)  # [n1-1, k+1, N]
+        h0 = _take_rows(b0, baby_srcs[1:])
+        h1 = _take_rows(b1, baby_srcs[1:])
+
+        dq = mats_q.reshape(n2, n1, ctx.k, ctx.n)
+        dqp = mats_qp.reshape(n2, n1, ctx.k + 1, ctx.n)
+
+        # q-part: acc0q[g] = sum_j rot_f0[j] * Dq[g, j]; raw c1 only at j = 0
+        acc0q = tree_add_mod(mont_mul(rot_f0[None], dq, q, qi), q, axis=1)[:, 0]
+        acc1q = mont_mul(f1[None], dq[:, 0], q, qi)
+
+        # P-part: acc*p[g] = sum_{j>=1} H*[j] * Dqp[g, j], lazily over q ∪ P
+        acc0p = tree_add_mod(mont_mul(h0[None], dqp[:, 1:], qp, qpi), qp, axis=1)[:, 0]
+        acc1p = tree_add_mod(mont_mul(h1[None], dqp[:, 1:], qp, qpi), qp, axis=1)[:, 0]
+
+        iq = ntt.ntt_inv(torch.stack([acc0q, acc1q]), ctx.tb_q)  # [2, n2, k, N]
+        ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(torch.stack([acc0p, acc1p]), ctx.tb_qp))
+        i0 = add_mod(iq[0], ip[0], q)  # [n2, k, N]
+        i1 = add_mod(iq[1], ip[1], q)
+
+        # giantsteps: out = inner_0 + sum_g sigma_{-g*n1}(inner_g)
+        p0 = _take_rows(i0[1:], giant_csrc)
+        p0 = torch.where(giant_csign[:, None, :], neg_mod(p0, q), p0)
+        out0 = i0[0]
+        for g in range(n2 - 1):
+            out0 = add_mod(out0, p0[g], q)
+
+        fdg = bfv_eval.hoist_digits(ctx, i1[1:])  # [n2-1, kd, k+1, N]
+        g0, g1 = contract(fdg.transpose(-3, -2), giant_k0, giant_k1)  # [n2-1, k+1, N]
+        hg0 = _take_rows(g0, giant_nsrc)
+        hg1 = _take_rows(g1, giant_nsrc)
+        accp0, accp1 = hg0[0], hg1[0]
+        for g in range(1, n2 - 1):
+            accp0 = add_mod(accp0, hg0[g], qp)
+            accp1 = add_mod(accp1, hg1[g], qp)
+        out0 = add_mod(out0, bfv_eval.mod_down(ctx, ntt.ntt_inv(accp0, ctx.tb_qp)), q)
+        out1 = add_mod(i1[0], bfv_eval.mod_down(ctx, ntt.ntt_inv(accp1, ctx.tb_qp)), q)
+        return Ciphertext(torch.stack([out0, out1]))
+
+    def _mix(self, st: Ciphertext, keys) -> Ciphertext:
+        """(2 1; 1 2) over the two rows (rotate_columns + adds)."""
+        ctx = self.ctx
+        tmp = bfv_eval.add(ctx, bfv_eval.apply_galois(ctx, st, self.g_cols, keys[3]), st)
+        return bfv_eval.add(ctx, st, tmp)
+
+    def _sbox_feistel(self, st: Ciphertext, keys) -> Ciphertext:
+        """state[i] += state[i-1]^2 (rotate, mask, square, relinearize, add)."""
+        ctx = self.ctx
+        rot = bfv_eval.apply_galois(ctx, st, self.g_neg1, keys[1])
+        rot = bfv_eval.multiply_plain(ctx, rot, self.feistel_mask)
+        rot = bfv_eval.relinearize(ctx, bfv_eval.square(ctx, rot), keys[0])
+        return bfv_eval.add(ctx, st, rot)
+
+    def _finish_impl(self, ks_data: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+        """Negate the keystream and add the symmetric-ciphertext chunk.
+
+        Encodes the chunk on the device (slot scatter -> inverse NTT mod t)
+        and applies the plain-add scaling round(Q m / t) mod q_i =
+        delta_i m + fix.  fix = floor((r m + h) / t) < 2^19 is computed by
+        exact int64 division; the JAX package reaches the same quotient with
+        wrapping u32 arithmetic and t^-1 mod 2^32.
+
+        ks_data [2, k, N]; chunk int32 [B, L<=T]; returns [2, B, k, N]."""
+        ctx = self.ctx
+        B = chunk.shape[0]
+        q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
+        slots = torch.zeros((B, ctx.n), dtype=torch.int32, device=chunk.device)
+        slots[:, : chunk.shape[1]] = chunk
+        poly_br = slots[:, self._enc_inv_map]
+        m = ntt.ntt_inv(poly_br[:, None, :], self._tb_t)[:, 0, :]  # [B, N] mod t
+        fix = torch.div(
+            m.to(I64) * self._fin_r + self._fin_h, int(ctx.t), rounding_mode="floor"
+        )
+        dm = mont_mul(m[:, None, :], self._fin_delta_mont, q, qi)  # [B, k, N]
+        fixb = fix[:, None, :]
+        fixr = torch.where(fixb >= q, fixb - q, fixb)
+        scaled = add_mod(dm, fixr, q)
+        c0 = add_mod(neg_mod(ks_data[0], q)[None], scaled, q)
+        c1 = neg_mod(ks_data[1], q)[None].expand(c0.shape)
+        return torch.stack([c0, c1])
+
+    def _keystream_impl(self, key_data, mats_qp, rcs_pt, keys) -> torch.Tensor:
+        """Full 3-round PASTA keystream evaluation on the encrypted key."""
+        ctx = self.ctx
+        st = Ciphertext(key_data)
+        for r in range(4):
+            st = self._matmul(st, self.round_mats(mats_qp, r), keys)
+            st = bfv_eval.add_plain(ctx, st, rcs_pt[r])
+            st = self._mix(st, keys)
+            if r < 2:
+                st = self._sbox_feistel(st, keys)
+            elif r == 2:
+                st = bfv_eval.exponentiate(ctx, st, 3, keys[0])
+        return st.data
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    def keystream_ct(self, enc_key: Ciphertext, nonce: int, b: int) -> Ciphertext:
+        """BFV ciphertext of the PASTA keystream for block b (cached)."""
+        ck = (id(enc_key.data), nonce, b)
+        if ck not in self._ks_cache:
+            mats_qp, rcs_pt = self.device_block_plaintexts(nonce, b)
+            out = self._keystream_impl(enc_key.data, mats_qp, rcs_pt, self._keys())
+            self._cache_put(
+                self._ks_cache, self._ks_cache_max, ck, (enc_key.data, Ciphertext(out))
+            )
+        return self._ks_cache[ck][1]
+
+    def device_block_plaintexts(self, nonce: int, b: int):
+        """Per-block round material expanded on the device (cached):
+        ([4, T, k+1, N] NTT+Mont diagonals, [4, k, N] round constants)."""
+        ck = ("dev", nonce, b)
+        if ck not in self._pt_cache:
+            mats_qp = self._expand_round_mats(self.block_first_rows(nonce, b))
+            self._cache_put(
+                self._pt_cache, self._pt_cache_max, ck, (mats_qp, self.block_rcs(nonce, b))
+            )
+        return self._pt_cache[ck]
+
+    def keystream_blocks(
+        self, enc_key: Ciphertext, nonce: int, blocks: List[int]
+    ) -> List[Ciphertext]:
+        """Keystream ciphertexts for several blocks (cached).  With two or
+        more blocks missing, each block's round material is expanded inside
+        its own keystream evaluation and not kept."""
+        missing = [b for b in blocks if (id(enc_key.data), nonce, b) not in self._ks_cache]
+        if len(missing) >= 2:
+            keys = self._keys()
+            for b in missing:
+                out = self._keystream_seeded_impl(
+                    enc_key.data, self.block_first_rows(nonce, b),
+                    self.block_rcs(nonce, b), keys,
+                )
+                self._cache_put(
+                    self._ks_cache, self._ks_cache_max,
+                    (id(enc_key.data), nonce, b), (enc_key.data, Ciphertext(out)),
+                )
+        return [self.keystream_ct(enc_key, nonce, b) for b in blocks]
+
+    def keystream_round_budgets(
+        self, enc_key: Ciphertext, sk, nonce: int = pasta.NONCE, b: int = 0
+    ) -> List[int]:
+        """Noise budget (bits) after each of the 4 keystream rounds."""
+        ctx = self.ctx
+        mats_qp, rcs_pt = self.device_block_plaintexts(nonce, b)
+        keys = self._keys()
+        st = Ciphertext(enc_key.data)
+        budgets = []
+        for r in range(4):
+            st = self._matmul(st, self.round_mats(mats_qp, r), keys)
+            st = bfv_eval.add_plain(ctx, st, rcs_pt[r])
+            st = self._mix(st, keys)
+            if r < 2:
+                st = self._sbox_feistel(st, keys)
+            elif r == 2:
+                st = bfv_eval.exponentiate(ctx, st, 3, keys[0])
+            budgets.append(ctx.noise_budget(sk, st))
+        return budgets
+
+    def decompose(self, enc_key: Ciphertext, sym_ct, nonce: int = pasta.NONCE) -> List[Ciphertext]:
+        """PASTA ciphertexts -> BFV ciphertexts.
+
+        sym_ct: [L] or [B, L].  Returns one ciphertext per 128-block; for
+        batched input each has data shape [2, B, k, N]."""
+        sym = np.asarray(sym_ct, np.uint64)
+        batched = sym.ndim == 2
+        sym2 = np.atleast_2d(sym)
+        B, L = sym2.shape
+        nblocks = math.ceil(L / T)
+        kss = self.keystream_blocks(enc_key, nonce, list(range(nblocks)))
+        out = []
+        for b in range(nblocks):
+            chunk = self.ctx.to_device(sym2[:, b * T : min((b + 1) * T, L)])
+            res = self._finish_impl(kss[b].data, chunk)  # [2, B, k, N]
+            out.append(Ciphertext(res if batched else res[:, 0]))
+        return out

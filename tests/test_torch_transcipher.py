@@ -1,0 +1,152 @@
+"""The port's homomorphic PASTA-3 transcipher against the JAX package, array
+for array, on the (N=2048, 4 limbs) stack of ``test_transcipher.py`` (CPU).
+
+The keys are made once by the JAX package and carried to the port, so both
+evaluate the same keystream on the same encrypted key."""
+
+import numpy as np
+import pytest
+import torch
+
+from hhe_tpu.ops import bfv as jbfv
+from hhe_tpu.ops import bfv_eval as jev
+from hhe_tpu.ops import pasta as jpasta
+from hhe_tpu.ops import transcipher as jtr
+from hhe_tpu_torch import convert
+from hhe_tpu_torch.ops import bfv as tbfv
+from hhe_tpu_torch.ops import bfv_eval as tev
+from hhe_tpu_torch.ops import pasta as tpasta
+from hhe_tpu_torch.ops import transcipher as ttr
+
+CPU = torch.device("cpu")
+T = ttr.T
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs several test workers on one CPU; one intra-op thread
+    per worker keeps them from oversubscribing it (measured 3x slower wall
+    time with torch's default thread count)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def same(t_obj, j_arr):
+    return np.array_equal(convert.to_numpy(t_obj), np.asarray(j_arr).astype(np.uint32))
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    """The JAX make_stack(2048, 4) of test_transcipher.py and the port's
+    Transcipher on the same keys, plus the encrypted PASTA key in both."""
+    params = dict(n=2048, data_limbs=4, seed=11)
+    jc = jbfv.Context(jbfv.BFVParams(**params))
+    sk = jc.keygen_secret()
+    pk = jc.keygen_public(sk)
+    rk = jc.keygen_relin(sk)
+    gks = jc.keygen_galois(sk, jtr.galois_elts(jc, True))
+    jt = jtr.Transcipher(jc, rk, gks)
+    tc = tbfv.Context(tbfv.BFVParams(**params), device="cpu")
+    trk, tgks = convert.kswitch_key(rk, CPU), convert.galois_keys(gks, CPU)
+    tt = ttr.Transcipher(tc, trk, tgks)
+    key = jpasta.get_fixed_symmetric_key()
+    jkey = jt.encrypt_key(pk, key)
+    tkey = convert.ciphertext(jkey, CPU)
+    return dict(jt=jt, tt=tt, sk=convert.secret_key(sk), jkey=jkey, tkey=tkey, key=key,
+                jgks=gks, trk=trk, tgks=tgks, jrk=rk)
+
+
+def test_galois_elts_and_bsgs_keys_match(stacks):
+    jt, tt = stacks["jt"], stacks["tt"]
+    assert ttr.galois_elts(tt.ctx) == jtr.galois_elts(jt.ctx)
+    assert tt.use_bsgs and jt.use_bsgs and not jt.use_mxu_galois
+    for name in ("baby_k0", "baby_k1", "baby_srcs", "giant_k0", "giant_k1",
+                 "giant_nsrc", "giant_csrc"):
+        assert same(getattr(tt, name), getattr(jt, name)), name
+    assert np.array_equal(tt.giant_csign.numpy(), np.asarray(jt.giant_csign))
+    assert same(tt.feistel_mask, jt.feistel_mask)
+
+
+def test_expand_round_mats_match(stacks):
+    jt, tt = stacks["jt"], stacks["tt"]
+    for b in (0, 1):
+        jrows = jt.block_first_rows(jpasta.NONCE, b)
+        trows = tt.block_first_rows(jpasta.NONCE, b)
+        assert same(trows, jrows)
+        assert same(tt.block_rcs(jpasta.NONCE, b), jt.block_rcs(jpasta.NONCE, b))
+        assert same(tt._expand_round_mats(trows), jt._jit_expand(jrows))
+
+
+@pytest.mark.parametrize("use_bsgs", [True, False], ids=["bsgs", "diagonal"])
+def test_linear_round_matches(stacks, use_bsgs):
+    """One round's matmul + round constants + mix, BSGS and diagonal."""
+    jt, tt = stacks["jt"], stacks["tt"]
+    if not use_bsgs:
+        jt = jtr.Transcipher(jt.ctx, jt.rk, stacks["jgks"], use_bsgs=False)
+        tt = ttr.Transcipher(tt.ctx, tt.rk, stacks["tgks"], use_bsgs=False)
+    jm, jr = jt.device_block_plaintexts(jpasta.NONCE, 0)
+    tm, tr = tt.device_block_plaintexts(jpasta.NONCE, 0)
+    jst = jt._matmul(jbfv.Ciphertext(stacks["jkey"].data), jt.round_mats(jm, 0), jt._keys())
+    tst = tt._matmul(tbfv.Ciphertext(stacks["tkey"].data), tt.round_mats(tm, 0), tt._keys())
+    assert same(tst.data, jst.data)
+    jst = jt._mix(jev.add_plain(jt.ctx, jst, jr[0]), jt._keys())
+    tst = tt._mix(tev.add_plain(tt.ctx, tst, tr[0]), tt._keys())
+    assert same(tst.data, jst.data)
+    # and it is PASTA's linear layer on the key
+    p = np.uint64(tt.ctx.t)
+    key = stacks["key"]
+    mats1, mats2, rcs1, rcs2 = tpasta.block_randomness(tt.ctx.t, tpasta.NONCE, 0)
+    s1 = (mats1[0] @ key[:T] + rcs1[0]) % p
+    s2 = (mats2[0] @ key[T:] + rcs2[0]) % p
+    tot = (s1 + s2) % p
+    got = tt.ctx.decode(tt.ctx.decrypt(stacks["sk"], tst))
+    half = tt.ctx.n // 2
+    assert np.array_equal(got[:T], (s1 + tot) % p)
+    assert np.array_equal(got[half : half + T], (s2 + tot) % p)
+
+
+def test_sbox_feistel_matches(stacks):
+    jt, tt = stacks["jt"], stacks["tt"]
+    jst = jt._sbox_feistel(jbfv.Ciphertext(stacks["jkey"].data), jt._keys())
+    tst = tt._sbox_feistel(tbfv.Ciphertext(stacks["tkey"].data), tt._keys())
+    assert same(tst.data, jst.data)
+
+
+def test_keystream_ct_matches(stacks):
+    """The full 3-round keystream ciphertext.  (The 4-limb chain has no noise
+    budget left after three rounds, in either package, so decryption of the
+    keystream is checked on the 13-limb stack of test_torch_workloads.py.)"""
+    jt, tt = stacks["jt"], stacks["tt"]
+    jks = jt.keystream_ct(stacks["jkey"], jpasta.NONCE, 0)
+    tks = tt.keystream_ct(stacks["tkey"], tpasta.NONCE, 0)
+    assert same(tks.data, jks.data)
+    assert tt.keystream_ct(stacks["tkey"], tpasta.NONCE, 0) is tks  # cached
+
+
+def test_keystream_blocks_match(stacks):
+    """Two uncached blocks take the seeded path (round material expanded
+    inside each evaluation); each equals the JAX package's keystream_ct."""
+    jt, tt = stacks["jt"], stacks["tt"]
+    nonce = tpasta.NONCE + 3
+    tks = tt.keystream_blocks(stacks["tkey"], nonce, [0, 1])
+    assert ("dev", nonce, 0) not in tt._pt_cache
+    for b in (0, 1):
+        assert same(tks[b].data, jt.keystream_ct(stacks["jkey"], nonce, b).data), b
+
+
+def test_decompose_matches(stacks):
+    """decompose of a B=2 batch at a fresh nonce equals the JAX package's."""
+    jt, tt = stacks["jt"], stacks["tt"]
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 256, (2, T), dtype=np.uint64)
+    nonce = tpasta.NONCE + 7
+    sym = tpasta.Pasta(stacks["key"], tt.ctx.t).encrypt(x, nonce=nonce)
+    jres = jt.decompose(stacks["jkey"], sym, nonce=nonce)
+    tres = tt.decompose(stacks["tkey"], sym, nonce=nonce)
+    assert len(tres) == len(jres) == 1
+    assert tuple(tres[0].data.shape) == (2, 2, tt.ctx.k, tt.ctx.n)
+    assert same(tres[0].data, jres[0].data)
+    one = tt.decompose(stacks["tkey"], sym[0], nonce=nonce)  # unbatched input
+    assert torch.equal(one[0].data, tres[0].data[:, 0])
