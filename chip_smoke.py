@@ -7,8 +7,10 @@ Phases (any failure propagates and the exit code is nonzero):
 0. device: the card's name and power limit, torch's CUDA version, nvcc;
 1. build: compile the NTT kernels from ``hhe_tpu_torch/csrc``;
 2. kernels: each kernel against its plain PyTorch version (``torch.equal``)
-   for 30-bit (lazy) and 31-bit (eager) moduli and t = 65537 at
-   N in {256, 2048, 16384} with batch dimensions, and inv(fwd(x)) == x;
+   for 30-bit (lazy) and 31-bit (eager) moduli and t = 65537 at every
+   N = 2^8 ... 2^14 (each a kernel instance of its own), with fewer 64 KB
+   tiles than the card has SMs and with at least four tiles a block, and
+   inv(fwd(x)) == x;
 3. main path: ``build_stack`` at the production BFV parameters (N=16384,
    13 x 30-bit limbs, device keygen), then ``hhe_ecg_inference`` on B=64
    samples.  Predictions must equal the plaintext model's, one decomposed
@@ -17,11 +19,13 @@ Phases (any failure propagates and the exit code is nonzero):
    decompose at B=64 with a fresh nonce per rep (PASTA encryption outside the
    timed region), one keystream block, the FC product, the batched decrypt;
 4. kernels at the main path's shapes: every shape the run gave each kernel,
-   on random residues, against the plain version (``torch.equal``), timed;
+   on random residues, against the plain version (``torch.equal``), timed
+   per call from Python (``ms``) and on the device alone
+   (``device_ms``, a CUDA graph of launches), each beside its bound;
 5. profile: one keystream block under ``torch.profiler``, device busy time
    by kernel;
 6. one JSON line with every kernel's launches, error, time, plain time and
-   bound, then the device line last.
+   bound, per shape and over the whole main path, then the device line last.
 
 Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 """
@@ -92,6 +96,8 @@ def phase_device():
 
 
 def phase_build():
+    """Compile the kernels and show ptxas' registers and spills per kernel;
+    a kernel that spills fails the build phase."""
     from hhe_tpu_torch.ops import ntt_kernels
 
     t0 = time.perf_counter()
@@ -100,36 +106,50 @@ def phase_build():
     nvcc_s = ntt_kernels.BUILD_LOG.get("seconds")
     log(f"build: {lib} in {time.perf_counter() - t0:.2f} s "
         + (f"(nvcc {nvcc_s:.2f} s)" if nvcc_s is not None else "(already built)"))
-    regs = [l.strip() for l in ntt_kernels.BUILD_LOG.get("compiler_output", "").splitlines()
-            if "registers" in l or "spill" in l]
-    for line in regs:
-        log(f"  ptxas: {line}")
+    report = ntt_kernels.ptxas_report(ntt_kernels.BUILD_LOG.get("compiler_output", ""))
+    for name, info in report.items():
+        log(f"  ptxas: {name}: {info['registers']}")
+    spills = [name for name, info in report.items() if info["spill_bytes"]]
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
+    log("  ptxas: no kernel spills")
 
 
 def phase_kernels():
-    """Kernel == plain version, bit for bit, across sizes and moduli."""
+    """Kernel == plain version, bit for bit, at every N the wrapper takes,
+    for lazy, eager and t moduli, with fewer tiles than SMs and with at least
+    four tiles for every block (so each block reuses its tile buffers)."""
     import torch
 
-    from hhe_tpu_torch.ops import ntt, primes
+    from hhe_tpu_torch.ops import ntt, ntt_kernels, primes
 
     dev = torch.device("cuda")
-    for n in (256, 2048, 16384):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for logn in range(8, 15):
+        n = 1 << logn
+        tile_rows = ntt_kernels.MAX_N // n  # rows in one 64 KB tile
         for bits, k in ((30, 13), (30, 14), (31, 15), (17, 1)):
             mods = (65537,) if bits == 17 else primes.ntt_primes(n, bits, k)
             tb = ntt.build_tables(mods, n, dev)
             gen = torch.Generator(device=dev).manual_seed(n * 100 + bits)
-            x = torch.stack(
-                [torch.randint(0, m, (2, 3, n), generator=gen, device=dev) for m in mods], -2
-            ).to(torch.int32)  # [2, 3, k, n]
-            f_plain = ntt.ntt_fwd_plain(x, tb)
-            f_kern = ntt.ntt_fwd(x, tb)
-            i_plain = ntt.ntt_inv_plain(f_plain, tb)
-            i_kern = ntt.ntt_inv(f_plain, tb)
-            back = ntt.ntt_inv(f_kern, tb)
-            ok = torch.equal(f_kern, f_plain) and torch.equal(i_kern, i_plain) and torch.equal(back, x)
-            log(f"kernels n={n} bits={bits} k={k} lazy={tb.lazy}: {'equal' if ok else 'DIFFER'}")
-            if not ok:
-                raise AssertionError(f"NTT kernel differs from plain version at n={n} bits={bits}")
+            for lead in ((2, 3), (-(-(4 * sms + 3) * tile_rows // k),)):
+                x = torch.stack(
+                    [torch.randint(0, m, (*lead, n), generator=gen, device=dev) for m in mods], -2
+                ).to(torch.int32)  # [*lead, k, n]
+                f_plain = ntt.ntt_fwd_plain(x, tb)
+                f_kern = ntt.ntt_fwd(x, tb)
+                i_plain = ntt.ntt_inv_plain(f_plain, tb)
+                i_kern = ntt.ntt_inv(f_plain, tb)
+                back = ntt.ntt_inv(f_kern, tb)
+                ok = (torch.equal(f_kern, f_plain) and torch.equal(i_kern, i_plain)
+                      and torch.equal(back, x))
+                rows = x.numel() // n
+                log(f"kernels n={n} bits={bits} k={k} rows={rows} "
+                    f"tiles={-(-rows // tile_rows)} lazy={tb.lazy}: "
+                    f"{'equal' if ok else 'DIFFER'}")
+                if not ok:
+                    raise AssertionError(
+                        f"NTT kernel differs from plain version at n={n} bits={bits} rows={rows}")
 
 
 class ShapeRecorder:
@@ -156,11 +176,44 @@ class ShapeRecorder:
             setattr(self.mod, name, fn)
 
 
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() launch, without the host's time per call:
+    ``launches`` calls captured in a CUDA graph, replayed ``reps`` times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
+def bound(name, shape, moduli):
+    """Least time on the card for one call (ms): the larger of the bytes
+    over the HBM rate and the multiplies over the int32 multiply rate, and
+    which of the two it is.  Bytes: the row tensor read and written once,
+    one twiddle table and the per-limb constants.  Multiplies: 3 per
+    butterfly (a Shoup product) and, for the inverse, 3 per coefficient for
+    N^-1."""
+    n = shape[-1]
+    nrows = int(np.prod(shape[:-1]))
+    logn = n.bit_length() - 1
+    nbytes = 8 * nrows * n + 4 * len(moduli) * (n + 3)
+    muls = 3 * nrows * (n // 2) * logn + (3 * nrows * n if name == "ntt_inv" else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MUL_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_rows(launches, calls):
     """Check each kernel against its plain version at every shape the main
     path gave it (random residues below each q, ``torch.equal``), time it
-    there, and give its bound at the dominant shape (the one carrying the
-    most polynomial rows).  Raises on any difference."""
+    there and give its bound there.  ``ms`` is the time of a Python call
+    (a loop of 20 calls timed by CUDA events) and
+    ``device_ms`` the device's alone (a CUDA graph of launches).  The row's
+    headline numbers are at the dominant shape (the one carrying the most
+    polynomial rows).  Raises on any difference."""
     import torch
 
     from hhe_tpu_torch.ops import ntt, ntt_kernels
@@ -176,7 +229,7 @@ def kernel_rows(launches, calls):
         (shape, moduli), ncalls = max(
             calls[name].items(), key=lambda kv: kv[1] * int(np.prod(kv[0][0][:-1]))
         )
-        err, path_ms = 0, 0.0
+        err, shapes = 0, []
         for (shp, mods), cnt in sorted(calls[name].items()):
             tb = ntt.build_tables(mods, shp[-1], dev)
             q = tb.q.reshape(*([1] * (len(shp) - 2)), -1, 1)
@@ -186,23 +239,23 @@ def kernel_rows(launches, calls):
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} differs from its plain version at {list(shp)}")
             del got, want
-            # the kernel's device time over the whole main path: every
-            # recorded shape timed, weighted by its number of calls
-            path_ms += cnt * cuda_ms(lambda: kern(x, tb), 5)
+            b_ms, b_by = bound(name, shp, mods)
+            ms, dev_ms = cuda_ms(lambda: kern(x, tb), 20), graph_ms(lambda: kern(x, tb))
+            shapes.append({
+                "shape": list(shp), "lazy": tb.lazy, "calls": cnt, "ms": ms, "device_ms": dev_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "share_of_bound": b_ms / ms, "device_share_of_bound": b_ms / dev_ms,
+            })
             if (shp, mods) == (shape, moduli):
-                ms = cuda_ms(lambda: kern(x, tb), 20)
                 plain_ms = cuda_ms(lambda: plain(x, tb), 2)
-                lazy = tb.lazy
-        log(f"{name}: equal to its plain version at all {len(calls[name])} main-path shapes")
-        n = shape[-1]
-        nrows = int(np.prod(shape[:-1]))
-        logn = n.bit_length() - 1
-        # bytes: the row tensor in and out, one twiddle table and the
-        # per-limb constants; multiplies: 4 per butterfly (a*b lo and hi,
-        # m = lo*qinv, umulhi(m, q)), plus 4 per coefficient for the inverse's N^-1
-        nbytes = 8 * nrows * n + 4 * len(moduli) * (n + 3)
-        muls = 4 * nrows * (n // 2) * logn + (4 * nrows * n if name == "ntt_inv" else 0)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MUL_PER_S * 1e3
+                head = shapes[-1]
+            log(f"  {name} {list(shp)} lazy={tb.lazy} x{cnt}: {ms:.4f} ms a call, "
+                f"{dev_ms:.4f} ms on the device, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.0%} ({b_ms / dev_ms:.0%} on the device) of it")
+        log(f"{name}: equal to its plain version at all {len(shapes)} main-path shapes")
+        path_ms = sum(r["calls"] * r["ms"] for r in shapes)
+        path_dev = sum(r["calls"] * r["device_ms"] for r in shapes)
+        path_bound = sum(r["calls"] * r["bound_ms"] for r in shapes)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -211,21 +264,30 @@ def kernel_rows(launches, calls):
             "launches": launches[name],
             "max_abs_err": err,
             "tolerance": 0,  # exact residues: the kernel must equal its plain version
-            "ms": ms,
+            "ms": head["ms"],
+            "device_ms": head["device_ms"],
             "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
             "library_ms": None,
             "shape": list(shape),
-            "lazy": lazy,
+            "lazy": head["lazy"],
             "calls_at_shape": ncalls,
+            # over the main path: every recorded shape, times its calls
             "main_path_ms": path_ms,
-            "shapes_checked": len(calls[name]),
+            "main_path_device_ms": path_dev,
+            "main_path_bound_ms": path_bound,
+            "main_path_share_of_bound": path_bound / path_ms,
+            "main_path_device_share_of_bound": path_bound / path_dev,
+            "shapes_checked": len(shapes),
+            "shapes": shapes,
             "verdict": "equal",
         })
-        log(f"{name} at {list(shape)}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({rows[-1]['bound_by']}); "
-            f"{path_ms:.2f} ms over the main path's {launches[name]} launches")
+        log(f"{name} at {list(shape)}: {head['ms']:.4f} ms a call ({head['device_ms']:.4f} ms "
+            f"on the device), {plain_ms:.3f} ms plain, bound {head['bound_ms']:.4f} ms "
+            f"({head['bound_by']}); over the main path's {launches[name]} launches "
+            f"{path_ms:.3f} ms in calls ({path_dev:.3f} ms on the device) against a bound of "
+            f"{path_bound:.3f} ms ({path_bound / path_ms:.0%}; {path_bound / path_dev:.0%})")
     return rows
 
 

@@ -60,9 +60,12 @@ class NttTables(NamedTuple):
     ninv: torch.Tensor  # [k, 1] int64 Montgomery-domain N^-1
     # the same constants as flat 32-bit words, the kernels' operands
     q32: torch.Tensor  # [k] int32
-    qinv32: torch.Tensor  # [k] int32 bit pattern of qinv_neg
-    ninv32: torch.Tensor  # [k] int32
     lazy: bool  # every modulus < 2^30: the kernels may reduce lazily
+    # Shoup pairs for the kernels: (w, floor(w * 2^32 / q)) with w the
+    # standard-domain value of the Montgomery entry above
+    psi_shoup: torch.Tensor  # [k, N, 2] int32, from psi_br
+    ipsi_shoup: torch.Tensor  # [k, N, 2] int32, from ipsi_br
+    ninv_shoup: torch.Tensor  # [k, 2, 2] int32: N^-1 (from ninv), N^-1 * ipsi_br[1]
 
 
 @functools.lru_cache(maxsize=32)
@@ -96,8 +99,16 @@ def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
         ipsi_t[i] = modular.to_mont_host(ipw[rev], q)
         ninv_t[i, 0] = modular.to_mont_host(np.uint64(pow(n, -1, q)), q)
 
+    ninv_std = np.array([pow(n, -1, q) for q in moduli], np.uint64)
+
     def col(a):
         return torch.from_numpy(a.astype(np.int64)).to(device)
+
+    def shoup(mont):  # [k, ...] Montgomery entries -> [k, ..., 2] Shoup pairs
+        q = q_arr.astype(np.uint64).reshape(k, *([1] * (mont.ndim - 1)))
+        rinv = np.array([pow(1 << 32, -1, int(m)) for m in moduli], np.uint64)
+        w = mont.astype(np.uint64) * rinv.reshape(q.shape) % q
+        return u32_to_torch(np.stack([w, (w << np.uint64(32)) // q], -1), device)
 
     return NttTables(
         moduli=moduli,
@@ -108,9 +119,11 @@ def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
         ipsi_br=u32_to_torch(ipsi_t, device),
         ninv=col(ninv_t),
         q32=u32_to_torch(q_arr[:, 0], device),
-        qinv32=u32_to_torch(qi_arr[:, 0], device),
-        ninv32=u32_to_torch(ninv_t[:, 0], device),
         lazy=all(q < (1 << 30) for q in moduli),
+        psi_shoup=shoup(psi_t),
+        ipsi_shoup=shoup(ipsi_t),
+        # N^-1, and N^-1 times the inverse's last-stage twiddle ipsi_br[1]
+        ninv_shoup=shoup(np.stack([ninv_t[:, 0], ipsi_t[:, 1] * ninv_std % q_arr[:, 0]], 1)),
     )
 
 

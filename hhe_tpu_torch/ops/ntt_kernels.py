@@ -8,18 +8,32 @@ loaded with ctypes.  Their plain PyTorch versions are ``ntt.ntt_fwd_plain`` /
 ``ntt.ntt_inv_plain``; ``ntt.ntt_fwd`` / ``ntt.ntt_inv`` send CPU tensors
 there and CUDA tensors here.
 
-The wrappers take only what the kernels take — a contiguous int32 CUDA tensor
-``[..., k, N]`` with 256 <= N <= 16384 a power of two and the matching
-tables on the same device — and raise on anything else.  ``LAUNCHES`` counts
-the kernel launches.
+Design (``ntt.cu``'s header has the details): a persistent grid of one
+1024-thread block per SM walks over 64 KB tiles of the tensor (one row at
+N = 16384, several below), bringing each in and out of shared memory with one
+bulk copy while the block transforms the previous one.  Each thread runs up
+to four butterfly stages on 16 coefficients in registers between exchanges
+through bank-conflict-free shared memory, with Shoup twiddle pairs
+(``NttTables.psi_shoup`` / ``ipsi_shoup`` / ``ninv_shoup``) and lazy
+reduction when every q < 2^30.  The bytes of the row tensor and the integer
+issue rate bound it about equally; tensor cores would need many int8
+products per exact 31-bit modular product and are not used.
+
+The wrappers take only what the kernels take — a contiguous, 16-byte aligned
+int32 CUDA tensor ``[..., k, N]`` with 256 <= N <= 16384 a power of two and
+the matching tables on the same device — and raise on anything else, a CPU
+tensor included.  The kernel instance is chosen from N and the moduli alone.
+``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +42,8 @@ import time
 import torch
 
 MIN_N = 256
-MAX_N = 16384  # one row in shared memory: 4N bytes <= 64 KB
+MAX_N = 16384  # one tile of shared memory: 4N bytes <= 64 KB
+ALIGN = 16  # bytes; the bulk copies need it
 
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
 
@@ -55,6 +70,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
+def nvcc_command(source, out) -> list:
+    """nvcc's command line for a library built from ``source``, with ptxas'
+    register and spill report (``ptxas_report`` reads it)."""
+    return [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(source)]
+
+
+_KERNEL_NAME = re.compile(r"(ntt_(?:fwd|inv)_kernel)ILi(\d+)ELb([01])E")
+
+
+def ptxas_report(output: str) -> dict:
+    """ptxas' lines per kernel instance from nvcc's output:
+    ``{"ntt_fwd_kernel<log2 N, lazy|eager>": {"registers": ..., "spill_bytes": ...}}``."""
+    report, name = {}, None
+    for line in output.splitlines():
+        if "entry function" in line:
+            mangled = line.split("'")[1]
+            m = _KERNEL_NAME.search(mangled)
+            name = f"{m[1]}<{m[2]}, {'lazy' if m[3] == '1' else 'eager'}>" if m else mangled
+            report[name] = {"registers": "", "spill_bytes": 0}
+        elif name is None:
+            continue
+        elif "spill" in line:
+            report[name]["spill_bytes"] += sum(int(w) for w in re.findall(r"(\d+) bytes spill", line))
+        elif "registers" in line:
+            report[name]["registers"] = line.split(":", 1)[1].strip()
+    return report
+
+
 def build() -> pathlib.Path:
     """Compile ``csrc/ntt.cu`` unless a library for this source exists."""
     src = SOURCE.read_bytes()
@@ -65,9 +108,8 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(SOURCE, tmp), capture_output=True, text=True)
     BUILD_LOG.update(
         library=str(out),
         seconds=time.perf_counter() - t0,
@@ -83,22 +125,25 @@ def _library():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.hhe_ntt_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, p]
-            lib.hhe_ntt_fwd.restype = i
-            lib.hhe_ntt_inv.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
-            lib.hhe_ntt_inv.restype = i
-            lib.hhe_cuda_error_string.argtypes = [i]
-            lib.hhe_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
         return _lib
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``ntt.cu``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hhe_ntt_fwd.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
+    lib.hhe_ntt_fwd.restype = i
+    lib.hhe_ntt_inv.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.hhe_ntt_inv.restype = i
+    lib.hhe_cuda_error_string.argtypes = [i]
+    lib.hhe_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check(x: torch.Tensor, tb) -> int:
-    """Validate the operands; returns the number of rows (batch * k)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"NTT kernel needs a CUDA tensor, got {x.device}")
+    """Validate the operands; returns the number of rows (batch * k).  The
+    device is checked last, so every refusal shows on a CPU tensor too."""
     if x.dtype != torch.int32:
         raise TypeError(f"NTT kernel needs int32 residues, got {x.dtype}")
     if not x.is_contiguous():
@@ -108,14 +153,24 @@ def _check(x: torch.Tensor, tb) -> int:
     k, n = x.shape[-2], x.shape[-1]
     if n < MIN_N or n > MAX_N or n & (n - 1):
         raise ValueError(f"NTT kernel supports N = 2^j in [{MIN_N}, {MAX_N}], got {n}")
-    if tuple(tb.psi_br.shape) != (k, n) or len(tb.moduli) != k:
+    if tuple(tb.psi_shoup.shape) != (k, n, 2) or len(tb.moduli) != k:
         raise ValueError(
             f"tables for {len(tb.moduli)} moduli x {tb.psi_br.shape[-1]} do not "
             f"match a tensor of {k} limbs x {n}"
         )
-    if tb.psi_br.device != x.device:
-        raise ValueError(f"tables on {tb.psi_br.device}, tensor on {x.device}")
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"NTT kernel needs a {ALIGN}-byte aligned tensor")
+    if tb.psi_shoup.device != x.device:
+        raise ValueError(f"tables on {tb.psi_shoup.device}, tensor on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"NTT kernel needs a CUDA tensor, got {x.device}")
     return x.numel() // n
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(index: int) -> int:
+    """The persistent grid's size: one block per SM."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _raise_on(rc: int, what: str):
@@ -124,42 +179,38 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def ntt_fwd(x: torch.Tensor, tb) -> torch.Tensor:
-    """Forward negacyclic NTT kernel (natural -> bit-reversed order)."""
+def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, y: torch.Tensor, tb) -> int:
+    """Launch kernel ``name`` ("ntt_fwd" or "ntt_inv") of ``lib`` from x into
+    y on the current stream, operands already checked; returns the CUDA error
+    code.  Counts nothing."""
+    n, dev = x.shape[-1], x.device.index
+    args = (x.numel() // n, x.shape[-2], n.bit_length() - 1, int(tb.lazy), _max_blocks(dev), dev,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if name == "ntt_fwd":
+        return lib.hhe_ntt_fwd(x.data_ptr(), y.data_ptr(), tb.psi_shoup.data_ptr(),
+                               tb.q32.data_ptr(), *args)
+    return lib.hhe_ntt_inv(x.data_ptr(), y.data_ptr(), tb.ipsi_shoup.data_ptr(),
+                           tb.q32.data_ptr(), tb.ninv_shoup.data_ptr(), *args)
+
+
+def _run(name: str, x: torch.Tensor, tb) -> torch.Tensor:
     rows = _check(x, tb)
     y = torch.empty_like(x)
     if rows == 0:
         return y
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hhe_ntt_fwd(
-            x.data_ptr(), y.data_ptr(), tb.psi_br.data_ptr(), tb.q32.data_ptr(),
-            tb.qinv32.data_ptr(), rows, x.shape[-2], x.shape[-1].bit_length() - 1,
-            int(tb.lazy), stream,
-        )
-    _raise_on(rc, "ntt_fwd")
-    LAUNCHES["ntt_fwd"] += 1
+    _raise_on(launch(_library(), name, x, y, tb), name)
+    LAUNCHES[name] += 1
     return y
+
+
+def ntt_fwd(x: torch.Tensor, tb) -> torch.Tensor:
+    """Forward negacyclic NTT kernel (natural -> bit-reversed order)."""
+    return _run("ntt_fwd", x, tb)
 
 
 def ntt_inv(x: torch.Tensor, tb) -> torch.Tensor:
     """Inverse negacyclic NTT kernel (bit-reversed -> natural order)."""
-    rows = _check(x, tb)
-    y = torch.empty_like(x)
-    if rows == 0:
-        return y
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hhe_ntt_inv(
-            x.data_ptr(), y.data_ptr(), tb.ipsi_br.data_ptr(), tb.q32.data_ptr(),
-            tb.qinv32.data_ptr(), tb.ninv32.data_ptr(), rows, x.shape[-2],
-            x.shape[-1].bit_length() - 1, int(tb.lazy), stream,
-        )
-    _raise_on(rc, "ntt_inv")
-    LAUNCHES["ntt_inv"] += 1
-    return y
+    return _run("ntt_inv", x, tb)
 
 
 def reset_launches():

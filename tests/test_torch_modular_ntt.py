@@ -104,7 +104,6 @@ def test_primes_and_tables_match_jax():
             assert np.array_equal(
                 getattr(tt, field).numpy().astype(np.uint32), np.asarray(getattr(jt, field))
             ), field
-        assert np.array_equal(n32(tt.qinv32), np.asarray(jt.qinv_neg)[:, 0])
         if n >= 128:  # the Pallas tables need a multiple of 128 lanes
             assert tt.lazy == ntt_pallas._build(mods, n, False).lazy
 
@@ -209,20 +208,98 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert ntt_kernels.LAUNCHES == before
 
 
+def _misaligned(shape):
+    """A contiguous int32 tensor whose data starts 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.int32)  # 64-byte aligned
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize(
+    "case, err, match",
+    [
+        ("misaligned", ValueError, "aligned"),
+        ("int64", TypeError, "int32"),
+        ("strided", ValueError, "contiguous"),
+        ("n=128", ValueError, "N = 2"),
+        ("n=384", ValueError, "N = 2"),
+        ("limbs", ValueError, "tables for"),
+    ],
+)
+def test_kernel_wrappers_refuse_what_kernels_do_not_take(case, err, match):
+    """Every limit of the kernels is checked before the device, so each
+    refusal shows here on the CPU; nothing launches."""
+    mods = jprimes.ntt_primes(256, 30, 2)
+    tt = tntt.build_tables(mods, 256, CPU)
+    x = {
+        "misaligned": lambda: _misaligned((2, 256)),
+        "int64": lambda: torch.zeros((2, 256), dtype=torch.int64),
+        "strided": lambda: torch.zeros((2, 512), dtype=torch.int32)[:, ::2],
+        "n=128": lambda: torch.zeros((2, 128), dtype=torch.int32),
+        "n=384": lambda: torch.zeros((2, 384), dtype=torch.int32),
+        "limbs": lambda: torch.zeros((3, 256), dtype=torch.int32),
+    }[case]()
+    before = dict(ntt_kernels.LAUNCHES)
+    for fn in (ntt_kernels.ntt_fwd, ntt_kernels.ntt_inv):
+        with pytest.raises(err, match=match):
+            fn(x, tt)
+    assert ntt_kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,bits,k", [(256, 30, 3), (2048, 31, 2), (16384, 30, 1), (1024, 17, 1)])
+def test_shoup_tables_match_exact_integers(n, bits, k):
+    """The kernels' Shoup pairs (w, floor(w 2^32 / q)): w is the standard
+    value of the Montgomery entry (w 2^32 = entry mod q), checked in Python
+    integers; the Montgomery fields stay those of the JAX package.  The
+    inverse's pairs for N^-1 and N^-1 * ipsi_br[1] come from ninv and
+    ipsi_br[:, 1] in the same way."""
+    mods = (65537,) if bits == 17 else tuple(jprimes.ntt_primes(n, bits, k))
+    tt = tntt.build_tables(mods, n, CPU)
+    jt = jntt.build_tables(mods, n)
+    for field in ("psi_br", "ipsi_br", "ninv"):
+        assert np.array_equal(
+            getattr(tt, field).numpy().astype(np.uint32), np.asarray(getattr(jt, field))
+        ), field
+    # the inverse's last stage folds N^-1 into its twiddle ipsi_br[1]
+    ninv = tt.ninv.numpy().astype(object)[:, 0]
+    ninv_w = np.array([int(m) * pow(n, -1, q) % q for m, q in zip(n32(tt.ipsi_br)[:, 1], mods)])
+    pairs = (
+        (tt.psi_shoup, n32(tt.psi_br)),
+        (tt.ipsi_shoup, n32(tt.ipsi_br)),
+        (tt.ninv_shoup, np.stack([ninv, ninv_w], 1)),
+    )
+    for shoup, mont in pairs:
+        assert shoup.dtype == torch.int32 and shoup.shape == (*mont.shape, 2)
+        sh = n32(shoup).astype(object)
+        for i, q in enumerate(mods):
+            w, wp = sh[i, ..., 0].ravel(), sh[i, ..., 1].ravel()
+            for wv, wpv, mv in zip(w, wp, mont[i].ravel().astype(object)):
+                assert wv < q and (wv << 32) % q == mv and wpv == (wv << 32) // q
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_cuda():
-    """On a card: both kernels equal their plain versions, lazy and eager."""
+@pytest.mark.parametrize("logn", range(8, 15))
+def test_kernels_match_plain_on_cuda(logn):
+    """On a card: both kernels equal their plain versions at every N the
+    wrappers take (one kernel instance each), for lazy (30-bit), eager
+    (31-bit) and t = 65537 tables, with fewer 64 KB tiles than the card has
+    SMs and with at least four tiles for every block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     dev = torch.device("cuda")
-    for n, bits, k in ((256, 30, 13), (2048, 31, 15), (16384, 30, 14)):
-        mods = tprimes.ntt_primes(n, bits, k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 1 << logn
+    tile_rows = ntt_kernels.MAX_N // n  # rows in one 64 KB tile
+    for bits, k in ((30, 13), (31, 15), (17, 1)):
+        mods = (65537,) if bits == 17 else tprimes.ntt_primes(n, bits, k)
         tb = tntt.build_tables(mods, n, dev)
-        rng = np.random.default_rng(n)
-        x = torch.from_numpy(
-            np.stack([rng.integers(0, m, (2, n)) for m in mods], 1).astype(np.int32)
-        ).to(dev)
-        f = tntt.ntt_fwd(x, tb)
-        assert torch.equal(f, tntt.ntt_fwd_plain(x, tb))
-        assert torch.equal(tntt.ntt_inv(f, tb), tntt.ntt_inv_plain(f, tb))
-        assert torch.equal(tntt.ntt_inv(f, tb), x)
+        rng = np.random.default_rng(n + bits)
+        for batch in (2, -(-(4 * sms + 3) * tile_rows // k)):
+            x = torch.from_numpy(
+                np.stack([rng.integers(0, m, (batch, n)) for m in mods], 1).astype(np.int32)
+            ).to(dev)
+            f = tntt.ntt_fwd(x, tb)
+            assert torch.equal(f, tntt.ntt_fwd_plain(x, tb))
+            assert torch.equal(tntt.ntt_inv(f, tb), tntt.ntt_inv_plain(f, tb))
+            assert torch.equal(tntt.ntt_inv(f, tb), x)
