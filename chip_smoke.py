@@ -5,35 +5,56 @@
 Phases (any failure propagates and the exit code is nonzero):
 
 0. device: the card's name and power limit, torch's CUDA version, nvcc;
-1. build: compile the NTT kernels from ``hhe_tpu_torch/csrc``;
+1. build: compile the NTT kernels from ``hhe_tpu_torch/csrc``; a kernel
+   instance that spills registers fails;
 2. kernels: each kernel against its plain PyTorch version (``torch.equal``)
-   for 30-bit (lazy) and 31-bit (eager) moduli and t = 65537 at every
-   N = 2^8 ... 2^14 (each a kernel instance of its own), with fewer 64 KB
+   for 30-bit (lazy) and 31-bit (eager) moduli and t at every
+   N = 2^8 ... 2^16 (each a kernel instance of its own; above 2^14 the row
+   is cut into 64 KB parts and the top passes run too), with fewer 64 KB
    tiles than the card has SMs and with at least four tiles a block, and
    inv(fwd(x)) == x;
-3. main path: ``build_stack`` at the production BFV parameters (N=16384,
-   13 x 30-bit limbs, device keygen), then ``hhe_ecg_inference`` on B=64
-   samples.  Predictions must equal the plaintext model's, one decomposed
-   sample must decrypt to its input with >= 40 bits of noise budget, and
-   both kernels must have launched during the run.  Then the timings:
-   decompose at B=64 with a fresh nonce per rep (PASTA encryption outside the
-   timed region), one keystream block, the FC product, the batched decrypt;
-4. kernels at the main path's shapes: every shape the run gave each kernel,
-   on random residues, against the plain version (``torch.equal``), timed
-   per call from Python (``ms``) and on the device alone
-   (``device_ms``, a CUDA graph of launches), each beside its bound;
-5. profile: one keystream block under ``torch.profiler``, device busy time
-   by kernel;
-6. one JSON line with every kernel's launches, error, time, plain time and
-   bound, per shape and over the whole main path, then the device line last.
+3. ECG path (the main path): ``build_stack`` at the production BFV
+   parameters (N=16384, 13 x 30-bit limbs, device keygen), then
+   ``hhe_ecg_inference`` on B=64 samples.  Predictions must equal the
+   plaintext model's, one decomposed sample must decrypt to its input with
+   >= 40 bits of noise budget, and both kernels must have launched during
+   the run.  Then the timings: decompose at B=64 with a fresh nonce per rep
+   (PASTA encryption outside the timed region), one keystream block, the FC
+   product, the batched decrypt; and one keystream block under
+   ``torch.profiler`` (device busy time by kernel);
+4. 1FC path: ``hhe_1fc_inference`` (SpO2: 300 words, three blocks, mask,
+   flatten, ct x ct, log-depth vec-sum) on B=64 samples at N=16384 with
+   FC_LIMBS limbs, its hard parity check, the noise budgets after
+   decompose+flatten and after FC+sum, the experiment report;
+5. large preset (a): the 58-limb N=65536 chain: encrypt, decrypt, device
+   galois key, rotate_rows(-1), each with > 1000 bits of budget, and the
+   tile kernels and the top passes launched; then ``default_context(32768)``
+   (26 limbs) and one rotation at N=32768;
+6. large preset (b): one 3-round keystream block at N=65536 with
+   LARGE_KS_LIMBS limbs, decrypting to the plain PASTA keystream, its
+   budget after each round, its time and its profile;
+7. kernels at the paths' shapes: every shape each path of phases 3-6 gave
+   each kernel, on random residues, against the plain version
+   (``torch.equal``; above N = 16384 each launch alone too), timed per call
+   from Python (``ms``) and on the device alone (``device_ms``, a CUDA graph
+   of launches) on one operand, and again cycling through copies that miss
+   the L2 (``ms_cold``, ``device_ms_cold``), each beside its bound;
+8. one JSON line of every phase's numbers, the card's line, one JSON line
+   with every kernel's launches per path, error, time, plain time and bound,
+   per shape and summed per path, then the device line last.
 
+Each path's launch counts are set to 0 just before it and read just after.
 Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
+import itertools
 import json
+import re
 import subprocess
 import time
 
@@ -45,9 +66,15 @@ import numpy as np
 # on 128 lanes per SM.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
+L2_BYTES = 50 * 2**20  # H100 L2 cache
 
 B = 64  # samples per decompose, the JAX package's headline batch
 REPS = 3
+FC_L = 300  # SpO2 words per sample
+FC_LIMBS = 13  # the 1FC path's data limbs at N=16384
+# the large preset's keystream block: the fewest data limbs whose last round
+# keeps >= 20 bits of noise budget (tools/torch_keystream_budgets.py)
+LARGE_KS_LIMBS = 17
 
 
 def log(msg: str):
@@ -69,14 +96,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wall_s(fn) -> float:
+def timed(fn):
+    """(fn(), its wall seconds), the device synchronised before and after."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def wall_s(fn) -> float:
+    return timed(fn)[1]
 
 
 def phase_device():
@@ -118,21 +150,24 @@ def phase_build():
 def phase_kernels():
     """Kernel == plain version, bit for bit, at every N the wrapper takes,
     for lazy, eager and t moduli, with fewer tiles than SMs and with at least
-    four tiles for every block (so each block reuses its tile buffers)."""
+    four tiles for every block (so each block reuses its tile buffers).
+    Above N = 16384 a row is N / 16384 tiles and the top passes run too."""
     import torch
 
-    from hhe_tpu_torch.ops import ntt, ntt_kernels, primes
+    from hhe_tpu_torch.ops import bfv, ntt, ntt_kernels, primes
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for logn in range(8, 15):
+    ntt_kernels.reset_launches()
+    for logn in range(8, 17):
         n = 1 << logn
-        tile_rows = ntt_kernels.MAX_N // n  # rows in one 64 KB tile
+        t = 65537 if n <= 32768 else bfv.large_params().t  # t - 1 must divide 2N
         for bits, k in ((30, 13), (30, 14), (31, 15), (17, 1)):
-            mods = (65537,) if bits == 17 else primes.ntt_primes(n, bits, k)
+            mods = (t,) if bits == 17 else primes.ntt_primes(n, bits, k)
             tb = ntt.build_tables(mods, n, dev)
             gen = torch.Generator(device=dev).manual_seed(n * 100 + bits)
-            for lead in ((2, 3), (-(-(4 * sms + 3) * tile_rows // k),)):
+            small = (2, 3) if n <= ntt.TILE else (1,)  # fewer tiles than SMs
+            for lead in (small, (-(-(4 * sms + 3) * ntt.TILE // (n * k)),)):
                 x = torch.stack(
                     [torch.randint(0, m, (*lead, n), generator=gen, device=dev) for m in mods], -2
                 ).to(torch.int32)  # [*lead, k, n]
@@ -145,11 +180,14 @@ def phase_kernels():
                       and torch.equal(back, x))
                 rows = x.numel() // n
                 log(f"kernels n={n} bits={bits} k={k} rows={rows} "
-                    f"tiles={-(-rows // tile_rows)} lazy={tb.lazy}: "
+                    f"tiles={-(-rows * n // ntt.TILE)} lazy={tb.lazy}: "
                     f"{'equal' if ok else 'DIFFER'}")
                 if not ok:
                     raise AssertionError(
                         f"NTT kernel differs from plain version at n={n} bits={bits} rows={rows}")
+    log(f"kernels: launches {ntt_kernels.LAUNCHES}")
+    if min(ntt_kernels.LAUNCHES.values()) == 0:
+        raise AssertionError(f"a kernel did not launch in the kernel phase: {ntt_kernels.LAUNCHES}")
 
 
 class ShapeRecorder:
@@ -190,104 +228,263 @@ def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
     return cuda_ms(graph.replay, reps) / launches
 
 
-def bound(name, shape, moduli):
-    """Least time on the card for one call (ms): the larger of the bytes
-    over the HBM rate and the multiplies over the int32 multiply rate, and
-    which of the two it is.  Bytes: the row tensor read and written once,
-    one twiddle table and the per-limb constants.  Multiplies: 3 per
-    butterfly (a Shoup product) and, for the inverse, 3 per coefficient for
-    N^-1."""
+# (kernel, the TPU kernel it replaces): the tile kernels K1 and K2 and, for
+# rows longer than one 64 KB tile, their top passes
+KERNELS = (
+    ("ntt_fwd", "hhe_tpu/ops/ntt_pallas.py:146"),
+    ("ntt_inv", "hhe_tpu/ops/ntt_pallas.py:197"),
+    ("ntt_fwd_top", "hhe_tpu/ops/ntt_pallas.py:146"),
+    ("ntt_inv_top", "hhe_tpu/ops/ntt_pallas.py:197"),
+)
+
+
+def bound(shape, moduli, stages, ninv, table_bytes=None):
+    """Least time on the card (ms) for a pass over a [..., k, N] tensor: the
+    larger of the bytes over the HBM rate and the multiplies over the int32
+    multiply rate, and which of the two it is.  Bytes: the row tensor read
+    and written once, plus `table_bytes` (by default one twiddle table and
+    the per-limb constants).  Multiplies: 3 per butterfly (a Shoup product)
+    of the `stages` stages and, with `ninv`, 3 per coefficient for N^-1."""
     n = shape[-1]
     nrows = int(np.prod(shape[:-1]))
-    logn = n.bit_length() - 1
-    nbytes = 8 * nrows * n + 4 * len(moduli) * (n + 3)
-    muls = 3 * nrows * (n // 2) * logn + (3 * nrows * n if name == "ntt_inv" else 0)
+    if table_bytes is None:
+        table_bytes = 4 * len(moduli) * (n + 3)
+    nbytes = 8 * nrows * n + table_bytes
+    muls = 3 * nrows * (n // 2) * stages + (3 * nrows * n if ninv else 0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MUL_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_rows(launches, calls):
-    """Check each kernel against its plain version at every shape the main
-    path gave it (random residues below each q, ``torch.equal``), time it
-    there and give its bound there.  ``ms`` is the time of a Python call
-    (a loop of 20 calls timed by CUDA events) and
-    ``device_ms`` the device's alone (a CUDA graph of launches).  The row's
-    headline numbers are at the dominant shape (the one carrying the most
-    polynomial rows).  Raises on any difference."""
+def launch_bound(name, shape, moduli):
+    """The bound of one launch of kernel `name`: the whole transform up to
+    N = 16384; above it the top pass's log2 P stages (and N^-1 for the
+    inverse's) or the tile kernel's other 14.  A top pass reads only the
+    Shoup pairs of psi_br[1 .. P-1] and q per limb, and the inverse's also
+    its two N^-1 pairs (``ntt.cu`` ``ntt_top``)."""
+    logn = shape[-1].bit_length() - 1
+    logp = max(0, logn - 14)
+    if name.endswith("_top"):
+        inv, k = name == "ntt_inv_top", len(moduli)
+        table_bytes = 8 * k * ((1 << logp) - 1) + 4 * k + (16 * k if inv else 0)
+        return bound(shape, moduli, logp, inv, table_bytes)
+    return bound(shape, moduli, logn - logp, name == "ntt_inv" and logp == 0)
+
+
+def rotating(fns):
+    """One callable that runs fns[0], fns[1], ... in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def timings(hot, cold, b_ms):
+    """``ms`` / ``device_ms``: every call on one operand (PR 2's measure);
+    ``ms_cold`` / ``device_ms_cold``: successive calls on different copies,
+    so that no call finds its data in the L2; each beside the bound."""
+    ms, dev_ms = cuda_ms(hot, 20), graph_ms(hot)
+    ms_cold, dev_cold = cuda_ms(cold, 20), graph_ms(cold)
+    return {
+        "ms": ms, "device_ms": dev_ms, "ms_cold": ms_cold, "device_ms_cold": dev_cold,
+        "share_of_bound": b_ms / ms, "device_share_of_bound": b_ms / dev_ms,
+        "share_of_bound_cold": b_ms / ms_cold, "device_share_of_bound_cold": b_ms / dev_cold,
+    }
+
+
+def time_entry(hot, cold, name, shape, moduli, calls, lazy):
+    b_ms, b_by = launch_bound(name, shape, moduli)
+    return {"shape": list(shape), "lazy": lazy, "calls": calls,
+            "bound_ms": b_ms, "bound_by": b_by, **timings(hot, cold, b_ms)}
+
+
+def check_shape(name, shape, moduli, calls, gen):
+    """At one shape a path gave K1 (`name` "ntt_fwd") or K2 ("ntt_inv"), on
+    random residues below each q: the wrapper against the plain version and,
+    above N = 16384, each of its two launches alone against the plain
+    version of what that launch computes (the top passes' own plain
+    versions; a lazy intermediate reduced mod q first), all ``torch.equal``.
+    Times each launch (``ms`` a Python call, a loop of 20 timed by CUDA
+    events; ``device_ms`` the device alone, a CUDA graph of launches) beside
+    its bound, and above 16384 the wrapper's two launches together beside
+    the single-pass bound.  Up to 16384 a launch is timed through the
+    wrapper, whose time per call is what its callers pay.  ``ms`` and
+    ``device_ms`` run every call on one operand; the ``_cold`` keys cycle
+    through copies of it, enough that a call's data has left the 50 MB L2
+    cache before it comes round again (the bound counts device-memory
+    bytes).  Returns ({kernel: entry}, max abs error); raises on any
+    difference."""
     import torch
 
     from hhe_tpu_torch.ops import ntt, ntt_kernels
 
     dev = torch.device("cuda")
+    lib = ntt_kernels._library()
+    fwd, top = name == "ntt_fwd", name + "_top"
+    n = shape[-1]
+    tb = ntt.build_tables(moduli, n, dev)
+    q = tb.q.reshape(*([1] * (len(shape) - 2)), -1, 1)
+
+    def rand():
+        return (torch.randint(0, 1 << 31, shape, generator=gen, device=dev) % q).to(torch.int32)
+
+    def go(kname, src, dst):
+        rc = ntt_kernels.launch(lib, kname, src, dst, tb)
+        if rc:
+            raise RuntimeError(f"{kname} launch failed: CUDA error {rc}")
+        return dst
+
+    def reduced(t):  # lazy residues (u32 bits) -> [0, q)
+        return ((t.long() & 0xFFFFFFFF) % q).to(torch.int32)
+
+    wrapper = getattr(ntt_kernels, name)
+    x = rand()
+    want = (ntt.ntt_fwd_plain if fwd else ntt.ntt_inv_plain)(x, tb)
+    pairs = [(name, wrapper(x, tb), want)]
+    y = torch.empty_like(x)
+    if n > ntt.TILE:
+        if fwd:
+            top_in, tile_in = x, ntt.ntt_fwd_top_plain(x, tb)
+            pairs.append((top, reduced(go(top, x, y)), tile_in))
+            pairs.append((f"{name} alone", go(name, tile_in, y).clone(), want))
+        else:
+            tile_in, top_in = x, rand()
+            pairs.append((f"{name} alone", ntt.ntt_inv_top_plain(reduced(go(name, x, y)), tb), want))
+            pairs.append((top, go(top, top_in, y).clone(), ntt.ntt_inv_top_plain(top_in, tb)))
+    err = 0
+    for what, got, exp in pairs:
+        err = max(err, int((got.long() - exp.long()).abs().max()))
+        if not torch.equal(got, exp):
+            raise AssertionError(f"{what} differs from its plain version at {list(shape)}")
+    del pairs, want
+    copies = range(max(1, min(20, -(-2 * L2_BYTES // (8 * x.numel())))))
+    xs = [x] + [x.clone() for _ in copies[1:]]
+    whole = (lambda: wrapper(x, tb), rotating([lambda xi=xi: wrapper(xi, tb) for xi in xs]))
+    if n <= ntt.TILE:
+        return {name: time_entry(*whole, name, shape, moduli, calls, tb.lazy)}, err
+
+    def alone(kname, src):
+        pairs = [(src.clone(), torch.empty_like(src)) for _ in copies]
+        hot = pairs[0]
+        return (lambda: go(kname, *hot),
+                rotating([lambda s=s, d=d: go(kname, s, d) for s, d in pairs]))
+
+    entries = {
+        name: time_entry(*alone(name, tile_in), name, shape, moduli, calls, tb.lazy),
+        top: time_entry(*alone(top, top_in), top, shape, moduli, calls, tb.lazy),
+    }
+    del y
+    b_ms, _ = bound(shape, moduli, n.bit_length() - 1, not fwd)
+    entries[name]["both_launches"] = {"single_pass_bound_ms": b_ms, **timings(*whole, b_ms)}
+    return entries, err
+
+
+def kernel_rows(launches, calls):
+    """Phase 7: every shape each path in `calls` ({path: {"ntt_fwd" |
+    "ntt_inv": Counter((shape, moduli))}}) gave K1 and K2, checked and timed
+    by ``check_shape`` (once a shape: a later path reuses the entry); one
+    row per kernel.  A row's headline numbers are at its dominant shape (the
+    one carrying the most polynomial rows) on the ECG path for the tile
+    kernels and on the large preset's keystream for the top passes;
+    ``paths`` sums every recorded shape times its calls per path (the
+    ``main_path_*`` keys: the ECG path).  `launches` is {path: {kernel:
+    count}}, each from that path's run."""
+    import torch
+
+    from hhe_tpu_torch.ops import ntt
+
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
+    per = {name: [] for name, _ in KERNELS}
+    errs = dict.fromkeys(per, 0)
+    checked = {}
+    for path, path_calls in calls.items():
+        for name in ("ntt_fwd", "ntt_inv"):
+            for (shp, mods), cnt in sorted(path_calls[name].items()):
+                if (name, shp, mods) not in checked:
+                    checked[name, shp, mods] = check_shape(name, shp, mods, cnt, gen)
+                entries, err = checked[name, shp, mods]
+                for kname, e in entries.items():
+                    e = dict(e, path=path, calls=cnt)
+                    per[kname].append((e, mods))
+                    errs[kname] = max(errs[kname], err)
+                    both = e.get("both_launches")
+                    log(f"  {path} {kname} {list(shp)} lazy={e['lazy']} x{cnt}: {e['ms']:.4f} ms "
+                        f"a call ({e['ms_cold']:.4f} cold), {e['device_ms']:.4f} ms on the device "
+                        f"({e['device_ms_cold']:.4f} cold), bound {e['bound_ms']:.4f} ms "
+                        f"({e['bound_by']}), {e['share_of_bound']:.0%} "
+                        f"({e['device_share_of_bound_cold']:.0%} on the device, cold)"
+                        + (f"; both launches {both['ms']:.4f} ms ({both['device_ms_cold']:.4f} "
+                           f"cold on the device) against the single-pass bound "
+                           f"{both['single_pass_bound_ms']:.4f} "
+                           f"({both['device_share_of_bound_cold']:.0%})" if both else ""))
+    plains = {"ntt_fwd": ntt.ntt_fwd_plain, "ntt_inv": ntt.ntt_inv_plain,
+              "ntt_fwd_top": ntt.ntt_fwd_top_plain, "ntt_inv_top": ntt.ntt_inv_top_plain}
     rows = []
-    for name, replaces, plain in (
-        ("ntt_fwd", "hhe_tpu/ops/ntt_pallas.py:146", ntt.ntt_fwd_plain),
-        ("ntt_inv", "hhe_tpu/ops/ntt_pallas.py:197", ntt.ntt_inv_plain),
-    ):
-        kern = getattr(ntt_kernels, name)
-        (shape, moduli), ncalls = max(
-            calls[name].items(), key=lambda kv: kv[1] * int(np.prod(kv[0][0][:-1]))
-        )
-        err, shapes = 0, []
-        for (shp, mods), cnt in sorted(calls[name].items()):
-            tb = ntt.build_tables(mods, shp[-1], dev)
-            q = tb.q.reshape(*([1] * (len(shp) - 2)), -1, 1)
-            x = (torch.randint(0, 1 << 31, shp, generator=gen, device=dev) % q).to(torch.int32)
-            got, want = kern(x, tb), plain(x, tb)
-            err = max(err, int((got.long() - want.long()).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} differs from its plain version at {list(shp)}")
-            del got, want
-            b_ms, b_by = bound(name, shp, mods)
-            ms, dev_ms = cuda_ms(lambda: kern(x, tb), 20), graph_ms(lambda: kern(x, tb))
-            shapes.append({
-                "shape": list(shp), "lazy": tb.lazy, "calls": cnt, "ms": ms, "device_ms": dev_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "share_of_bound": b_ms / ms, "device_share_of_bound": b_ms / dev_ms,
-            })
-            if (shp, mods) == (shape, moduli):
-                plain_ms = cuda_ms(lambda: plain(x, tb), 2)
-                head = shapes[-1]
-            log(f"  {name} {list(shp)} lazy={tb.lazy} x{cnt}: {ms:.4f} ms a call, "
-                f"{dev_ms:.4f} ms on the device, bound {b_ms:.4f} ms ({b_by}), "
-                f"{b_ms / ms:.0%} ({b_ms / dev_ms:.0%} on the device) of it")
-        log(f"{name}: equal to its plain version at all {len(shapes)} main-path shapes")
-        path_ms = sum(r["calls"] * r["ms"] for r in shapes)
-        path_dev = sum(r["calls"] * r["device_ms"] for r in shapes)
-        path_bound = sum(r["calls"] * r["bound_ms"] for r in shapes)
-        rows.append({
+    for name, replaces in KERNELS:
+        shapes = [e for e, _ in per[name]]
+        head_path = "large_keystream" if name.endswith("_top") else "ecg"
+        head, mods = max(((e, m) for e, m in per[name] if e["path"] == head_path),
+                         key=lambda em: em[0]["calls"] * int(np.prod(em[0]["shape"][:-1])))
+        tb = ntt.build_tables(mods, head["shape"][-1], dev)
+        q = tb.q.reshape(*([1] * (len(head["shape"]) - 2)), -1, 1)
+        x = (torch.randint(0, 1 << 31, head["shape"], generator=gen, device=dev) % q).to(torch.int32)
+        plain_ms = cuda_ms(lambda: plains[name](x, tb), 2)
+        del x
+        paths = {}
+        for path in calls:
+            mine = [e for e in shapes if e["path"] == path]
+            if mine:
+                s = {key: sum(e["calls"] * e[key] for e in mine)
+                     for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "bound_ms")}
+                b = s["bound_ms"]
+                paths[path] = {**s, "share_of_bound": b / s["ms"],
+                               "device_share_of_bound": b / s["device_ms"],
+                               "device_share_of_bound_cold": b / s["device_ms_cold"]}
+        main = paths.get("ecg")
+        row = {
             "name": name,
             "route": "cuda",
             "source": "hhe_tpu_torch/csrc/ntt.cu",
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": err,
+            "launches": sum(per_path[name] for per_path in launches.values()),
+            "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
+            "max_abs_err": errs[name],
             "tolerance": 0,  # exact residues: the kernel must equal its plain version
             "ms": head["ms"],
             "device_ms": head["device_ms"],
+            "ms_cold": head["ms_cold"],
+            "device_ms_cold": head["device_ms_cold"],
             "plain_ms": plain_ms,
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
-            "library_ms": None,
-            "shape": list(shape),
+            "library_ms": None,  # no PyTorch call computes an exact modular NTT
+            "shape": head["shape"],
+            "shape_path": head_path,
             "lazy": head["lazy"],
-            "calls_at_shape": ncalls,
-            # over the main path: every recorded shape, times its calls
-            "main_path_ms": path_ms,
-            "main_path_device_ms": path_dev,
-            "main_path_bound_ms": path_bound,
-            "main_path_share_of_bound": path_bound / path_ms,
-            "main_path_device_share_of_bound": path_bound / path_dev,
+            "calls_at_shape": head["calls"],
+            "paths": paths,
             "shapes_checked": len(shapes),
             "shapes": shapes,
             "verdict": "equal",
-        })
-        log(f"{name} at {list(shape)}: {head['ms']:.4f} ms a call ({head['device_ms']:.4f} ms "
-            f"on the device), {plain_ms:.3f} ms plain, bound {head['bound_ms']:.4f} ms "
-            f"({head['bound_by']}); over the main path's {launches[name]} launches "
-            f"{path_ms:.3f} ms in calls ({path_dev:.3f} ms on the device) against a bound of "
-            f"{path_bound:.3f} ms ({path_bound / path_ms:.0%}; {path_bound / path_dev:.0%})")
+        }
+        if main:
+            row.update({
+                "main_path_ms": main["ms"],
+                "main_path_device_ms": main["device_ms"],
+                "main_path_ms_cold": main["ms_cold"],
+                "main_path_device_ms_cold": main["device_ms_cold"],
+                "main_path_bound_ms": main["bound_ms"],
+                "main_path_share_of_bound": main["share_of_bound"],
+                "main_path_device_share_of_bound": main["device_share_of_bound"],
+                "main_path_device_share_of_bound_cold": main["device_share_of_bound_cold"],
+            })
+        rows.append(row)
+        log(f"{name} at {head['shape']} ({head_path}): {head['ms']:.4f} ms a call "
+            f"({head['device_ms']:.4f} ms on the device, {head['device_ms_cold']:.4f} cold), "
+            f"{plain_ms:.3f} ms plain, bound {head['bound_ms']:.4f} ms ({head['bound_by']}); "
+            f"launches {row['launches_by_path']}; "
+            + "; ".join(f"{p}: {v['ms']:.3f} ms in calls ({v['device_ms']:.3f} on the device, "
+                        f"{v['device_ms_cold']:.3f} cold) against {v['bound_ms']:.3f} "
+                        f"({v['share_of_bound']:.0%}; {v['device_share_of_bound_cold']:.0%} cold)"
+                        for p, v in paths.items()))
     return rows
 
 
@@ -324,7 +521,7 @@ def phase_main_path():
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path: hhe_ecg_inference B={B} in {stats['ecg_inference_s']:.2f} s, "
         f"launches {launches}")
-    if min(launches.values()) == 0:
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:  # no row longer than a tile here
         raise AssertionError(f"a kernel did not launch on the main path: {launches}")
 
     sums = (x.astype(np.int64) * w).sum(1)
@@ -381,25 +578,244 @@ def phase_main_path():
     return stack, launches, rec.calls, stats
 
 
+def phase_1fc():
+    """The SpO2 1FC path: ``hhe_1fc_inference`` on B samples of L=300 words
+    (three PASTA blocks, then mask, flatten, ct x ct, relinearize and the
+    log-depth vec-sum), its hard parity check raising on any difference;
+    the noise budget after decompose+flatten and after FC+sum, and the
+    experiment report's per-party ms and per-edge MB."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.utils.config import RunConfig
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    t0 = time.perf_counter()
+    stack = wk.build_stack(
+        bfv.BFVParams(n=16384, data_limbs=FC_LIMBS, seed=1), input_len=FC_L,
+        device_keygen=True, seed=1,
+    )
+    torch.cuda.synchronize()
+    stats = {"limbs": FC_LIMBS, "setup_s": time.perf_counter() - t0, "galois_keys": len(stack.gks)}
+    rng = np.random.default_rng(0)
+    w = rng.integers(-3, 4, FC_L)
+    x = rng.integers(0, 32, (B, FC_L))
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        out = wk.hhe_1fc_inference(stack, w, x, check_parity=True,
+                                   run=RunConfig(dry_run=False, verbose=True))
+        torch.cuda.synchronize()
+        stats["inference_s"] = time.perf_counter() - t0
+    launches = dict(ntt_kernels.LAUNCHES)
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the 1FC path: {launches}")
+    if not np.array_equal(out["raw"], x.astype(np.int64) @ w):
+        raise AssertionError("1FC outputs differ from the plaintext model")
+    stats["computation_ms"] = out["report"]["computation_ms"]
+    stats["communication_mb"] = out["report"]["communication_mb"]
+    # the stage budgets, as RunConfig's debugging prints them; a second run,
+    # so that the host's noise budgets stay out of the timed report above
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        wk.hhe_1fc_inference(stack, w, x, check_parity=True,
+                             run=RunConfig(dry_run=False, debugging=True))
+    log(printed.getvalue().rstrip())
+    budgets = dict(re.findall(r"noise budget after (.+?): (-?\d+) bits", printed.getvalue()))
+    stats["noise_budget_after_decompose_flatten"] = int(budgets["decomposition+flatten"])
+    stats["noise_budget_after_fc_sum"] = int(budgets["encrypted FC + vec_sum"])
+    log(f"1fc: hhe_1fc_inference B={B} L={FC_L} at N=16384 / {FC_LIMBS} limbs: parity held, "
+        f"launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    return stats, launches, rec.calls
+
+
+def phase_large_chain():
+    """Large preset, part (a): the full 58-limb chain at N = 65536 (the
+    counterpart of tests/test_large_preset.py::test_full_58_limb_chain_keygen_rotation):
+    encrypt 300 values, decrypt them with > 1000 bits of noise budget, device
+    keygen of the galois key for step -1, rotate_rows by -1 (a hybrid
+    key-switch over 59 moduli), budget still > 1000 bits and the rolled
+    vector back.  The tile kernels and the top passes must launch."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, bfv_eval, ntt_kernels
+
+    stats = {}
+    t0 = time.perf_counter()
+    ctx = bfv.Context(bfv.large_params(seed=7))  # three NTT table sets: 58, 59, 60 limbs
+    stats["context_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk = ctx.keygen_secret()
+    pk = ctx.keygen_public(sk)
+    stats["host_keys_s"] = time.perf_counter() - t0
+    if (ctx.k, ctx.n) != (58, 65536):
+        raise AssertionError(f"large preset has {ctx.k} limbs at N={ctx.n}")
+    v = np.random.default_rng(8).integers(0, ctx.t, 300, dtype=np.int64)
+    t0 = time.perf_counter()
+    ct = ctx.encrypt(pk, ctx.encode(v))
+    stats["encrypt_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["noise_budget_fresh"] = ctx.noise_budget(sk, ct)
+    stats["noise_budget_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = ctx.decode(ctx.decrypt(sk, ct))[:300]
+    stats["decrypt_s"] = time.perf_counter() - t0
+    if stats["noise_budget_fresh"] <= 1000 or not np.array_equal(dec, v):
+        raise AssertionError(f"58-limb encryption wrong or noisy ({stats['noise_budget_fresh']} bits)")
+
+    ntt_kernels.reset_launches()
+    g = ctx.galois_elt_from_step(-1)
+    with ShapeRecorder() as rec:
+        (_, gks), stats["galois_key_s"] = timed(
+            lambda: ctx.keygen_eval_keys_device(sk, [g], include_relin=False, seed=7))
+        rot, stats["rotate_s"] = timed(lambda: bfv_eval.rotate_rows(ctx, ct, -1, gks))
+    launches = dict(ntt_kernels.LAUNCHES)
+    stats["galois_key_gib"] = 2 * gks[g].k0.numel() * 4 / 2**30
+    stats["noise_budget_rotated"] = ctx.noise_budget(sk, rot)
+    half = ctx.n // 2
+    vv = np.zeros(ctx.n, np.uint64)
+    vv[:300] = v
+    expect = np.roll(vv.reshape(2, half), 1, axis=1).reshape(-1)
+    if stats["noise_budget_rotated"] <= 1000 or not np.array_equal(
+            ctx.decode(ctx.decrypt(sk, rot)), expect):
+        raise AssertionError(f"58-limb rotation wrong or noisy ({stats['noise_budget_rotated']} bits)")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not launch on the 58-limb chain: {launches}")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"large preset (a): N=65536, 58 limbs, t={ctx.t}: encrypt, decrypt, device galois key, "
+        f"rotate_rows(-1) right; launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    return stats, launches, rec.calls
+
+
+def phase_rotation_32768():
+    """N = 32768 through the entry points: ``default_context(32768)`` (26
+    limbs), a device galois key, ``rotate_rows`` by -1 on an encrypted
+    vector and the rolled vector back; the shapes it gives K1 and K2 go to
+    the kernel phase."""
+    from hhe_tpu_torch.ops import bfv, bfv_eval, ntt_kernels
+
+    ctx = bfv.default_context(32768, seed=3)
+    sk = ctx.keygen_secret()
+    pk = ctx.keygen_public(sk)
+    v = np.random.default_rng(9).integers(0, ctx.t, ctx.n, dtype=np.int64)
+    ct = ctx.encrypt(pk, ctx.encode(v))
+    g = ctx.galois_elt_from_step(-1)
+    _, gks = ctx.keygen_eval_keys_device(sk, [g], include_relin=False, seed=3)
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec:
+        rot, rotate_s = timed(lambda: bfv_eval.rotate_rows(ctx, ct, -1, gks))
+    launches = dict(ntt_kernels.LAUNCHES)
+    half = ctx.n // 2
+    if not np.array_equal(ctx.decode(ctx.decrypt(sk, rot)),
+                          np.roll(v.reshape(2, half), 1, axis=1).reshape(-1)):
+        raise AssertionError("rotate_rows at N=32768 gives the wrong vector")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not launch at N=32768: {launches}")
+    stats = {"limbs": ctx.k, "rotate_s": rotate_s, "noise_budget_rotated": ctx.noise_budget(sk, rot)}
+    log(f"N=32768: default_context ({ctx.k} limbs), rotate_rows(-1) right; launches {launches}; "
+        f"{stats}")
+    bfv.default_context.cache_clear()
+    return stats, launches, rec.calls
+
+
+def large_keystream_setup(limbs, seed=1):
+    """The large preset (N = 65536, 29-bit t) cut to `limbs` data limbs:
+    the context, device keygen of the transcipher's keys, and the fixed
+    PASTA key (mod t) encrypted; returns (ctx, sk, tc, key, enc_key)."""
+    from hhe_tpu_torch.ops import bfv, pasta, transcipher
+
+    ctx = bfv.Context(bfv.large_params(data_limbs=limbs, seed=seed))
+    sk = ctx.keygen_secret()
+    pk = ctx.keygen_public(sk)
+    rk, gks = ctx.keygen_eval_keys_device(
+        sk, transcipher.galois_elts(ctx), include_relin=True, seed=seed
+    )
+    tc = transcipher.Transcipher(ctx, rk, gks)
+    key = pasta.get_fixed_symmetric_key() % np.uint64(ctx.t)
+    return ctx, sk, tc, key, tc.encrypt_key(pk, key)
+
+
+def keystream_right(ctx, sk, key, ks) -> bool:
+    """Whether keystream ciphertext `ks` of block 0 decrypts to the plain
+    PASTA keystream."""
+    from hhe_tpu_torch.ops import pasta, transcipher
+
+    got = ctx.decode(ctx.decrypt(sk, ks))[: transcipher.T]
+    return bool(np.array_equal(got, pasta.keystream(key, ctx.t, pasta.NONCE, 0)))
+
+
+def phase_large_keystream():
+    """Large preset, part (b): one full 3-round keystream block at N = 65536
+    with the chain cut to LARGE_KS_LIMBS data limbs (the 58-limb chain's
+    ~40 galois keys of 1.79 GB each do not fit the card).  Its decryption
+    must equal the plain PASTA keystream; the budget after each round is
+    printed and the last must be >= 20 bits.  Then the block's time with a
+    fresh nonce per rep (round-material expansion included) and on expanded
+    material, synchronised per rep."""
+    import torch
+
+    from hhe_tpu_torch.ops import ntt_kernels, pasta
+
+    stats = {"limbs": LARGE_KS_LIMBS}
+    (ctx, sk, tc, key, enc_key), stats["setup_s"] = timed(
+        lambda: large_keystream_setup(LARGE_KS_LIMBS))
+    stats["galois_keys"] = len(tc.gks_all)
+
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        ks = tc.keystream_ct(enc_key, pasta.NONCE, 0)
+        torch.cuda.synchronize()
+        stats["first_block_s"] = time.perf_counter() - t0
+    launches = dict(ntt_kernels.LAUNCHES)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not launch on the large keystream: {launches}")
+    if not keystream_right(ctx, sk, key, ks):
+        raise AssertionError("N=65536 keystream block differs from the plain PASTA keystream")
+    stats["keystream_round_budgets"] = tc.keystream_round_budgets(enc_key, sk)
+    if stats["keystream_round_budgets"][-1] < 20:
+        raise AssertionError(f"keystream budget below 20 bits: {stats['keystream_round_budgets']}")
+    nonce = 60_000
+    stats["block_fresh_nonce_s_by_rep"] = []
+    for _ in range(REPS):
+        stats["block_fresh_nonce_s_by_rep"].append(
+            wall_s(lambda: tc.keystream_ct(enc_key, nonce, 0)))
+        nonce += 1
+    mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
+    keys = tc._keys()
+    stats["block_ms"] = 1e3 * min(
+        wall_s(lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys))
+        for _ in range(REPS)
+    )
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"large preset (b): one keystream block at N=65536, {LARGE_KS_LIMBS} limbs, t={ctx.t}: "
+        f"decrypts to the plain PASTA keystream; launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    stats["profile"] = phase_profile(tc, enc_key, stats["block_ms"], "large keystream")
+    return stats, launches, rec.calls
+
+
 def helin_weight(stack, w):
     from hhe_tpu_torch.ops import helin
 
     return helin.encrypt_weight(stack.ctx, stack.pk, np.asarray(w)[None, :])[0]
 
 
-def phase_profile(stack, block_ms):
-    """Device time by kernel over one keystream block under torch.profiler.
-    The profiler slows the host, so the busy share is also given against
-    the unprofiled ``block_ms``."""
+def phase_profile(tc, enc_key, block_ms, tag):
+    """Device time by kernel over one keystream block of Transcipher `tc`
+    under torch.profiler.  The profiler slows the host, so the busy share is
+    also given against the unprofiled ``block_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hhe_tpu_torch.ops import pasta
 
-    tc = stack.tc
-    key = pasta.get_fixed_symmetric_key()
-    enc_key = tc.encrypt_key(stack.pk, key)
     mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
     keys = tc._keys()
     tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys)
@@ -421,24 +837,50 @@ def phase_profile(stack, block_ms):
         "ntt_ms": ntt_ms,
         "ntt_share_of_busy": ntt_ms / busy_ms,
     }
-    log(f"profile: {out}")
+    log(f"profile ({tag}): {out}")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
     return out
 
 
+def free_device():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def main():
     import torch
+
+    from hhe_tpu_torch.ops import pasta
 
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     phase_kernels()
-    stack, launches, calls, stats = phase_main_path()
+    launches, calls = {}, {}
+    stack, launches["ecg"], calls["ecg"], stats = phase_main_path()
+    enc_key = stack.tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
+    prof = phase_profile(stack.tc, enc_key, stats["block_ms"], "ECG keystream")
+    del stack, enc_key
+    free_device()
+    fc, launches["1fc"], calls["1fc"] = phase_1fc()
+    free_device()
+    chain, launches["large_chain"], calls["large_chain"] = phase_large_chain()
+    free_device()
+    rot32k, launches["rotation_32768"], calls["rotation_32768"] = phase_rotation_32768()
+    free_device()
+    large, launches["large_keystream"], calls["large_keystream"] = phase_large_keystream()
+    free_device()
     rows = kernel_rows(launches, calls)
-    prof = phase_profile(stack, stats["block_ms"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"card": smi, "main_path": stats, "profile": prof}), flush=True)
+    print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "1fc": fc,
+                      "large_chain": chain, "rotation_32768": rot32k,
+                      "large_keystream": large}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -1,6 +1,6 @@
 // Negacyclic NTT over RNS limbs for Hopper (sm_90a): the forward and the
 // inverse transform of every (batch row, limb) polynomial of an int32
-// [..., k, N] tensor, modulo that limb's q < 2^31, for N = 2^8 ... 2^14.
+// [..., k, N] tensor, modulo that limb's q < 2^31, for N = 2^8 ... 2^16.
 //
 // Replaces the TPU kernels hhe_tpu/ops/ntt_pallas.py `_fwd_kernel` (forward,
 // natural -> bit-reversed order) and `_inv_kernel` (inverse, bit-reversed ->
@@ -57,6 +57,30 @@
 // and a reduction, more instructions than the three integer multiplies they
 // would replace.
 //
+// Rows longer than a tile (N = 2^15, 2^16: 128 and 256 KB, where a block
+// may hold at most 227 KB of shared memory) take two launches.  The row is
+// cut into P = N / 2^14 parts of 64 KB.  In the merged-psi order of the
+// plain stage loop the log2 P stages of distance >= 2^14 mix the parts; all
+// later forward stages stay inside one part, and the stage with m groups
+// uses psi_br[m + g] = psi_br[(P + p) m' + g'] in part p (m' = m / P
+// sub-groups, g' the sub-group).  So:
+// - forward: the top pass (`ntt_fwd_top_kernel`) runs the log2 P stages
+//   elementwise, each thread holding the P coefficients j, j + 2^14, ... of
+//   one (row, limb) with the twiddles psi_br[1 .. P-1]; then the tile kernel
+//   transforms each part as a row of 2^14 words, reading the part's own
+//   table ([k, P, 2^14] Shoup pairs, entry j in [m', 2m') of part p holding
+//   psi_br[(P + p) m' + j - m'], ntt.build_tables);
+// - inverse: the tile kernel on each part with the parts' ipsi_br tables
+//   and without N^-1, then the top pass (`ntt_inv_top_kernel`) runs the
+//   last log2 P Gentleman-Sande stages and folds N^-1 into the last one.
+// Between the two launches device memory holds, lazy (every q < 2^30):
+// forward [0, 4q), inverse [0, 2q); eager: [0, q).  Those are the ranges
+// the next launch's butterflies take; each direction ends in [0, q).  The
+// split reads and writes each row twice, so it can reach at best half of
+// the single-pass byte bound (PERF.md has both launches' times).  A cluster
+// of P blocks exchanging the top stages through distributed shared memory
+// would make one trip; not done.
+//
 // C interface for ctypes: the functions launch on the given stream, do not
 // synchronise, allocate nothing and return cudaGetLastError().  The tensor
 // must be 16-byte aligned (the bulk copies need it; the wrapper checks).
@@ -73,6 +97,8 @@ namespace {
 constexpr int TILE_LOG = 14;
 constexpr int TILE = 1 << TILE_LOG;  // words per tile
 constexpr int THREADS = 1024;
+// log2 of the transform length in a tile: the row, or one part of a longer row
+__host__ __device__ constexpr int tile_log(int logn) { return logn < TILE_LOG ? logn : TILE_LOG; }
 constexpr int E = 16;  // coefficients per thread in a pass
 // Tile buffers: one transforming while the others drain their bulk store
 // and load.  A third buffer lets each store drain for a whole tile.  On an
@@ -204,10 +230,22 @@ __device__ __forceinline__ void butterfly(uint32_t& x0, uint32_t& x1, uint2 w, u
   }
 }
 
+// The inverse's last stage has the one twiddle ipsi_br[1]; N^-1 is folded
+// into it: (u + v) N^-1 and (u - v) ipsi_br[1] N^-1, in [0, q)
+template <bool LAZY>
+__device__ __forceinline__ void fold_last(uint32_t& x0, uint32_t& x1, uint2 n0, uint2 n1,
+                                          uint32_t q) {
+  const uint32_t u = x0, v = x1;
+  x0 = red(shoup(u + v, n0.x, n0.y, q), q);
+  x1 = red(shoup(u + (LAZY ? q + q : q) - v, n1.x, n1.y, q), q);
+}
+
 struct Operands {
   const uint32_t* x;
   uint32_t* y;
-  const uint2* tw;  // [k, N] Shoup pairs
+  // Shoup pairs: tile kernels [k, P, N / P] (the parts' tables, P = 1 up to
+  // N = 2^14), top passes [k, N] (psi_br or ipsi_br)
+  const uint2* tw;
   const uint32_t* q;  // [k]
   const uint2* ninv;  // [k, 2] Shoup pairs N^-1, N^-1 ipsi_br[1] (inverse only)
   long long rows;
@@ -217,16 +255,20 @@ struct Operands {
 // One register pass over the tile in s.  It reads the tile in natural order
 // if IN_NAT (always after the bulk copy) and swz() order otherwise, and
 // writes it in natural order if OUT_NAT (always before the bulk store).
+// LOGN is the row's; the pass transforms rows (or parts of a row) of
+// N = 2^tile_log(LOGN) words, and `row` counts those.
 template <int LOGN, int IDX, bool FWD, bool LAZY, bool IN_NAT, bool OUT_NAT, bool LAST>
 __device__ __forceinline__ void run_pass(uint32_t* s, uint32_t base, uint32_t row0,
                                          const Operands& op) {
-  constexpr Pass P = make_pass(LOGN, IDX);
-  constexpr int N = 1 << LOGN;
+  constexpr int TL = tile_log(LOGN), LOGP = LOGN - TL;  // P = 2^LOGP parts a row
+  constexpr Pass P = make_pass(TL, IDX);
+  constexpr int N = 1 << TL;
   uint32_t row = row0;
-  if constexpr (LOGN < TILE_LOG) row += base >> LOGN;
-  const uint32_t limb = row % static_cast<uint32_t>(op.k);
+  if constexpr (TL < TILE_LOG) row += base >> TL;
+  const uint32_t part = row % (static_cast<uint32_t>(op.k) << LOGP);  // limb * P + p
+  const uint32_t limb = part >> LOGP;
   const uint32_t q = __ldg(op.q + limb);
-  const uint2* tw = op.tw + static_cast<size_t>(limb) * N;
+  const uint2* tw = op.tw + static_cast<size_t>(part) * N;
   const uint32_t sbase = swz(base);
 
   uint32_t a[E];
@@ -250,16 +292,13 @@ __device__ __forceinline__ void run_pass(uint32_t* s, uint32_t base, uint32_t ro
   // bits DF_BITS-3 are hi, or among all 16 if hi < 0
   auto stage = [&](const int p, const int hi) {
     const int lt = P.lo + p;
-    if (!FWD && LAST && lt == LOGN - 1) {
-      // the inverse's last stage has the one twiddle ipsi_br[1]; N^-1 is
-      // folded into it: (u + v) N^-1 and (u - v) ipsi_br[1] N^-1
+    // the inverse's last stage folds N^-1 (a split row's top pass does it)
+    if (!FWD && LAST && LOGP == 0 && lt == TL - 1) {
       const uint2 n0 = __ldg(op.ninv + 2 * limb), n1 = __ldg(op.ninv + 2 * limb + 1);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         if (((e >> p) & 1) || (hi >= 0 && (e >> DF_BITS) != hi)) continue;
-        const uint32_t u = a[e], v = a[e | (1 << p)];
-        a[e] = red(shoup(u + v, n0.x, n0.y, q), q);
-        a[e | (1 << p)] = red(shoup(u + (LAZY ? q + q : q) - v, n1.x, n1.y, q), q);
+        fold_last<LAZY>(a[e], a[e | (1 << p)], n0, n1, q);
       }
       return;
     }
@@ -330,13 +369,13 @@ __device__ __forceinline__ void run_pass(uint32_t* s, uint32_t base, uint32_t ro
 template <int LOGN, bool FWD, bool LAZY, int J = 0>
 __device__ __forceinline__ void run_passes(uint32_t* s, const uint32_t* base, uint32_t row0,
                                            const Operands& op) {
-  constexpr int NP = num_passes(LOGN);
+  constexpr int TL = tile_log(LOGN), NP = num_passes(TL);
   if constexpr (J < NP) {
     constexpr int I = FWD ? NP - 1 - J : J;  // forward: largest distance first
     constexpr int PREV = FWD ? I + 1 : I - 1, NEXT = FWD ? I - 1 : I + 1;
     // an exchange is in natural order when both its passes allow it
-    constexpr bool IN_NAT = J == 0 || (lanes_low(LOGN, I) && lanes_low(LOGN, PREV));
-    constexpr bool OUT_NAT = J == NP - 1 || (lanes_low(LOGN, I) && lanes_low(LOGN, NEXT));
+    constexpr bool IN_NAT = J == 0 || (lanes_low(TL, I) && lanes_low(TL, PREV));
+    constexpr bool OUT_NAT = J == NP - 1 || (lanes_low(TL, I) && lanes_low(TL, NEXT));
     run_pass<LOGN, I, FWD, LAZY, IN_NAT, OUT_NAT, J == NP - 1>(
         s, (base[I / 2] >> (16 * (I % 2))) & 0xffffu, row0, op);
     run_passes<LOGN, FWD, LAZY, J + 1>(s, base, row0, op);
@@ -384,15 +423,17 @@ __device__ __forceinline__ void ntt_tiles(const Operands& op) {
   extern __shared__ __align__(128) uint32_t smem[];
   constexpr int NBUF = nbuf(FWD);
   __shared__ __align__(8) uint64_t full[NBUF];
-  constexpr int RPT = TILE >> LOGN;  // rows per tile
-  constexpr uint32_t ROW_BYTES = 4u << LOGN;
+  constexpr int TL = tile_log(LOGN);
+  constexpr int RPT = TILE >> TL;  // rows (or parts of rows) per tile
+  constexpr uint32_t ROW_BYTES = 4u << TL;
   const uint32_t tid = threadIdx.x;
-  // 32-bit tile counts (rows < 2^31 on any card) keep registers free
-  const int ntiles = static_cast<int>((op.rows + RPT - 1) / RPT);
+  const long long rows = op.rows << (LOGN - TL);  // of 2^TL words
+  // 32-bit tile counts (tiles < 2^31, launch() checks) keep registers free
+  const int ntiles = static_cast<int>((rows + RPT - 1) / RPT);
   const uint32_t bar = smem_addr(&full[0]);
   const uint32_t buf = smem_addr(smem);
   auto tile_bytes = [&](int t) {
-    const long long left = op.rows - static_cast<long long>(t) * RPT;
+    const long long left = rows - static_cast<long long>(t) * RPT;
     return static_cast<uint32_t>(left < RPT ? left : RPT) * ROW_BYTES;
   };
   auto tile_ptr = [](auto* p, int t) { return p + static_cast<size_t>(t) * TILE; };
@@ -404,8 +445,8 @@ __device__ __forceinline__ void ntt_tiles(const Operands& op) {
     if (static_cast<int>(blockIdx.x) < ntiles)
       bulk_load(buf, tile_ptr(op.x, blockIdx.x), tile_bytes(blockIdx.x), bar);
   }
-  uint32_t base[(num_passes(LOGN) + 1) / 2];
-  fill_bases<LOGN>(base, tid);
+  uint32_t base[(num_passes(TL) + 1) / 2];
+  fill_bases<TL>(base, tid);
   __syncthreads();
 
   int it = 0;
@@ -438,6 +479,83 @@ __global__ void __launch_bounds__(THREADS, 1) ntt_inv_kernel(const Operands op) 
   ntt_tiles<LOGN, false, LAZY>(op);
 }
 
+constexpr int TOP_THREADS = 256;
+constexpr int TOP_WORDS = 4;  // consecutive words of each part a thread takes: 16 bytes
+constexpr int TOP_BLOCKS_PER_ROW = TILE / (TOP_THREADS * TOP_WORDS);
+
+// The stages of distance >= 2^14 of a row of N = P 2^14 words, elementwise:
+// thread i of a row holds words 4i .. 4i+3 of each of the P parts (one
+// 16-byte load and store each, neighbouring threads on neighbouring
+// addresses).  Forward: the first log2 P stages (twiddles psi_br[1 .. P-1]);
+// inverse: the last log2 P, N^-1 folded into the last.  x may be y.
+template <int LOGN, bool FWD, bool LAZY>
+__device__ __forceinline__ void ntt_top(const Operands& op) {
+  constexpr int P = 1 << (LOGN - TILE_LOG);
+  const uint32_t row = blockIdx.x / TOP_BLOCKS_PER_ROW;
+  const uint32_t j = ((blockIdx.x % TOP_BLOCKS_PER_ROW) * TOP_THREADS + threadIdx.x) * TOP_WORDS;
+  const uint32_t limb = row % static_cast<uint32_t>(op.k);
+  const uint32_t q = __ldg(op.q + limb);
+  const uint2* tw = op.tw + (static_cast<size_t>(limb) << LOGN);
+  const size_t off = (static_cast<size_t>(row) << LOGN) + j;
+  uint2 w[P];
+#pragma unroll
+  for (int i = 1; i < P; ++i) w[i] = __ldg(tw + i);
+  uint32_t a[P][TOP_WORDS];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(op.x + off + p * TILE);
+    a[p][0] = v.x, a[p][1] = v.y, a[p][2] = v.z, a[p][3] = v.w;
+  }
+  // the stage with m groups pairs part i of group g with part i + d,
+  // d = P / 2m, twiddle [m + g]
+  if (FWD) {
+#pragma unroll
+    for (int m = 1; m < P; m *= 2) {
+      const int d = P / (2 * m);
+#pragma unroll
+      for (int g = 0; g < m; ++g)
+#pragma unroll
+        for (int i = 0; i < d; ++i)
+#pragma unroll
+          for (int e = 0; e < TOP_WORDS; ++e)
+            butterfly<true, LAZY>(a[2 * d * g + i][e], a[2 * d * g + i + d][e], w[m + g], q);
+    }
+  } else {
+#pragma unroll
+    for (int m = P / 2; m > 1; m /= 2) {
+      const int d = P / (2 * m);
+#pragma unroll
+      for (int g = 0; g < m; ++g)
+#pragma unroll
+        for (int i = 0; i < d; ++i)
+#pragma unroll
+          for (int e = 0; e < TOP_WORDS; ++e)
+            butterfly<false, LAZY>(a[2 * d * g + i][e], a[2 * d * g + i + d][e], w[m + g], q);
+    }
+    const uint2 n0 = __ldg(op.ninv + 2 * limb), n1 = __ldg(op.ninv + 2 * limb + 1);
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i)
+#pragma unroll
+      for (int e = 0; e < TOP_WORDS; ++e) fold_last<LAZY>(a[i][e], a[i + P / 2][e], n0, n1, q);
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    *reinterpret_cast<uint4*>(op.y + off + p * TILE) =
+        make_uint4(a[p][0], a[p][1], a[p][2], a[p][3]);
+}
+
+// K1's first launch for N > 2^14
+template <int LOGN, bool LAZY>
+__global__ void __launch_bounds__(TOP_THREADS) ntt_fwd_top_kernel(const Operands op) {
+  ntt_top<LOGN, true, LAZY>(op);
+}
+
+// K2's second launch for N > 2^14
+template <int LOGN, bool LAZY>
+__global__ void __launch_bounds__(TOP_THREADS) ntt_inv_top_kernel(const Operands op) {
+  ntt_top<LOGN, false, LAZY>(op);
+}
+
 // the shared-memory opt-in, once per kernel instance and device
 cudaError_t allow_smem(const void* kernel, int bytes) {
   static std::mutex mu;
@@ -458,16 +576,33 @@ int launch(const Operands& op, int max_blocks, cudaStream_t stream) {
       FWD ? ntt_fwd_kernel<LOGN, LAZY> : ntt_inv_kernel<LOGN, LAZY>;
   const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem_bytes(FWD));
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int RPT = TILE >> LOGN;
-  const long long ntiles = (op.rows + RPT - 1) / RPT;
-  if (ntiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int TL = tile_log(LOGN), RPT = TILE >> TL;
+  if (op.rows >= (1LL << 31) >> (LOGN - TL)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ntiles = ((op.rows << (LOGN - TL)) + RPT - 1) / RPT;
   const long long grid = ntiles < max_blocks ? ntiles : max_blocks;
   kernel<<<static_cast<unsigned int>(grid), THREADS, smem_bytes(FWD), stream>>>(op);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LOGN, bool FWD, bool LAZY>
+int launch_top(const Operands& op, cudaStream_t stream) {
+  void (*kernel)(const Operands) =
+      FWD ? ntt_fwd_top_kernel<LOGN, LAZY> : ntt_inv_top_kernel<LOGN, LAZY>;
+  if (op.rows >= (1LL << 31) / TOP_BLOCKS_PER_ROW) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = static_cast<unsigned int>(op.rows * TOP_BLOCKS_PER_ROW);
+  kernel<<<grid, TOP_THREADS, 0, stream>>>(op);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool FWD, bool LAZY>
-int dispatch(const Operands& op, int logn, int max_blocks, cudaStream_t stream) {
+int dispatch(const Operands& op, int logn, bool top, int max_blocks, cudaStream_t stream) {
+  if (top) {
+    switch (logn) {
+      case 15: return launch_top<15, FWD, LAZY>(op, stream);
+      case 16: return launch_top<16, FWD, LAZY>(op, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (logn) {
     case 8: return launch<8, FWD, LAZY>(op, max_blocks, stream);
     case 9: return launch<9, FWD, LAZY>(op, max_blocks, stream);
@@ -476,13 +611,16 @@ int dispatch(const Operands& op, int logn, int max_blocks, cudaStream_t stream) 
     case 12: return launch<12, FWD, LAZY>(op, max_blocks, stream);
     case 13: return launch<13, FWD, LAZY>(op, max_blocks, stream);
     case 14: return launch<14, FWD, LAZY>(op, max_blocks, stream);
+    case 15: return launch<15, FWD, LAZY>(op, max_blocks, stream);
+    case 16: return launch<16, FWD, LAZY>(op, max_blocks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // launches on `device`, leaving the caller's current device as it was
-int run(bool fwd, const void* x, void* y, const void* tw, const void* q, const void* ninv,
-        long long rows, int k, int logn, int lazy, int max_blocks, int device, void* stream) {
+int run(bool fwd, bool top, const void* x, void* y, const void* tw, const void* q,
+        const void* ninv, long long rows, int k, int logn, int lazy, int max_blocks, int device,
+        void* stream) {
   const Operands op{static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
                     static_cast<const uint2*>(tw), static_cast<const uint32_t*>(q),
                     static_cast<const uint2*>(ninv), rows, k};
@@ -493,11 +631,11 @@ int run(bool fwd, const void* x, void* y, const void* tw, const void* q, const v
   if (err != cudaSuccess) return static_cast<int>(err);
   int rc;
   if (fwd)
-    rc = lazy ? dispatch<true, true>(op, logn, max_blocks, st)
-              : dispatch<true, false>(op, logn, max_blocks, st);
+    rc = lazy ? dispatch<true, true>(op, logn, top, max_blocks, st)
+              : dispatch<true, false>(op, logn, top, max_blocks, st);
   else
-    rc = lazy ? dispatch<false, true>(op, logn, max_blocks, st)
-              : dispatch<false, false>(op, logn, max_blocks, st);
+    rc = lazy ? dispatch<false, true>(op, logn, top, max_blocks, st)
+              : dispatch<false, false>(op, logn, top, max_blocks, st);
   if (prev != device) {
     err = cudaSetDevice(prev);
     if (rc == 0) rc = static_cast<int>(err);
@@ -509,18 +647,34 @@ int run(bool fwd, const void* x, void* y, const void* tw, const void* q, const v
 
 extern "C" {
 
-// tw: [k, N, 2] Shoup pairs of psi_br; max_blocks: the grid's cap (one per SM)
+// The tile kernels.  tw: [k, P, N / P, 2] Shoup pairs of the parts' psi_br
+// tables (P = 1 and the plain table up to N = 2^14); max_blocks: the grid's
+// cap (one per SM).  N > 2^14: the forward's second launch.
 int hhe_ntt_fwd(const void* x, void* y, const void* tw, const void* q, long long rows, int k,
                 int logn, int lazy, int max_blocks, int device, void* stream) {
-  return run(true, x, y, tw, q, nullptr, rows, k, logn, lazy, max_blocks, device, stream);
+  return run(true, false, x, y, tw, q, nullptr, rows, k, logn, lazy, max_blocks, device, stream);
 }
 
-// tw: [k, N, 2] Shoup pairs of ipsi_br; ninv: [k, 2, 2] Shoup pairs of N^-1
-// and N^-1 ipsi_br[1]
+// tw: the same of ipsi_br; ninv: [k, 2, 2] Shoup pairs of N^-1 and
+// N^-1 ipsi_br[1] (read only up to N = 2^14).  N > 2^14: the inverse's first
+// launch, values left in [0, 2q) (lazy) or [0, q).
 int hhe_ntt_inv(const void* x, void* y, const void* tw, const void* q, const void* ninv,
                 long long rows, int k, int logn, int lazy, int max_blocks, int device,
                 void* stream) {
-  return run(false, x, y, tw, q, ninv, rows, k, logn, lazy, max_blocks, device, stream);
+  return run(false, false, x, y, tw, q, ninv, rows, k, logn, lazy, max_blocks, device, stream);
+}
+
+// The top passes for N = 2^15, 2^16.  tw: [k, N, 2] Shoup pairs of psi_br;
+// the forward's first launch, values left in [0, 4q) (lazy) or [0, q).
+int hhe_ntt_fwd_top(const void* x, void* y, const void* tw, const void* q, long long rows, int k,
+                    int logn, int lazy, int device, void* stream) {
+  return run(true, true, x, y, tw, q, nullptr, rows, k, logn, lazy, 0, device, stream);
+}
+
+// tw: [k, N, 2] Shoup pairs of ipsi_br; ninv as for hhe_ntt_inv
+int hhe_ntt_inv_top(const void* x, void* y, const void* tw, const void* q, const void* ninv,
+                    long long rows, int k, int logn, int lazy, int device, void* stream) {
+  return run(false, true, x, y, tw, q, ninv, rows, k, logn, lazy, 0, device, stream);
 }
 
 const char* hhe_cuda_error_string(int code) {

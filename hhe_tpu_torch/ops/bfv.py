@@ -15,6 +15,7 @@ of ``hhe_tpu.ops.bfv``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -605,3 +606,19 @@ def _popcount20(v: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def large_params(data_limbs: int = 58, seed: int = 0) -> BFVParams:
+    """The reference's large preset, as the JAX package cuts it: N = 65536
+    with 58 x 30-bit data limbs (the 1740 usable bits of the reference's
+    29 x 60-bit chain) and a 29-bit NTT-friendly plaintext modulus
+    (t = 65537 cannot batch at this degree: t - 1 must divide 2N)."""
+    t = primes.ntt_primes(65536, 29, 1)[0]
+    return BFVParams(n=65536, t=t, data_limbs=data_limbs, seed=seed)
+
+
+@functools.lru_cache(maxsize=4)
+def default_context(n: int = 16384, seed: int = 0, device=None) -> Context:
+    """A context at degree n with the JAX package's limb count for it."""
+    limbs = {4096: 4, 8192: 7, 16384: 13, 32768: 26}[n] if n >= 4096 else 3
+    return Context(BFVParams(n=n, data_limbs=limbs, seed=seed), device=device)

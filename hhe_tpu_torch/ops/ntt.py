@@ -9,8 +9,10 @@ bit-reversed -> natural.  Tensors are int32 ``[..., k, N]`` residues.
 to the hand-written kernels of ``ntt_kernels`` (which raise on anything they
 do not take), a CPU tensor to the plain PyTorch stage loop below
 (``ntt_fwd_plain`` / ``ntt_inv_plain``, the counterparts of
-``_ntt_fwd_xla`` / ``_ntt_inv_xla``).  The host numpy NTT at the end serves
-keygen, encrypt, encode and decrypt.
+``_ntt_fwd_xla`` / ``_ntt_inv_xla``).  ``ntt_fwd_top_plain`` /
+``ntt_inv_top_plain`` are the plain versions of the kernels' top passes for
+rows longer than ``TILE``.  The host numpy NTT at the end serves keygen,
+encrypt, encode and decrypt.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import torch
 from . import modular, primes
 
 I64 = torch.int64
+# Words of the kernels' shared-memory tile.  A longer row is cut into
+# P = N / TILE parts, and its tables into one per part (``part_index``).
+TILE = 16384
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:
@@ -33,6 +38,32 @@ def bit_reverse_indices(n: int) -> np.ndarray:
     for b in range(logn):
         rev |= ((idx >> b) & 1) << (logn - 1 - b)
     return rev
+
+
+def powers(base: int, n: int, q: int, dtype=np.uint64) -> np.ndarray:
+    """base^j mod q for j in [0, n) (n a power of two), by doubling: exact in
+    uint64 for q < 2^32, where every product is below 2^64; pass
+    ``dtype=object`` for Python integers."""
+    cast = np.uint64 if dtype is np.uint64 else int
+    out = np.ones(1, dtype)
+    while len(out) < n:
+        out = np.concatenate([out, out * cast(pow(base, len(out), q)) % cast(q)])
+    return out
+
+
+def part_index(n: int, parts: int) -> np.ndarray:
+    """[parts, n // parts] indices into a bit-reversed twiddle table: entry j
+    in [m', 2m') of part p is (parts + p) m' + j - m', the twiddle that the
+    stage with m' sub-groups of each part takes in the merged-psi order once
+    the log2(parts) stages that mix the parts have run (entry 0 is unused and
+    takes index 0).  parts = 1 is the identity."""
+    j = np.arange(n // parts, dtype=np.int64)
+    hi = j.copy()  # the highest power of two <= j (0 for j = 0)
+    for s in (1, 2, 4, 8, 16):
+        hi |= hi >> s
+    hi -= hi >> 1
+    p = np.arange(parts, dtype=np.int64)[:, None]
+    return (parts + p) * hi + (j - hi)
 
 
 def u32_to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -66,6 +97,10 @@ class NttTables(NamedTuple):
     psi_shoup: torch.Tensor  # [k, N, 2] int32, from psi_br
     ipsi_shoup: torch.Tensor  # [k, N, 2] int32, from ipsi_br
     ninv_shoup: torch.Tensor  # [k, 2, 2] int32: N^-1 (from ninv), N^-1 * ipsi_br[1]
+    # the tile kernels' tables: [k, P, N / P, 2] int32, psi_shoup re-indexed
+    # by part_index for N > TILE; up to TILE, P = 1 and a view of psi_shoup
+    psi_parts: torch.Tensor
+    ipsi_parts: torch.Tensor
 
 
 @functools.lru_cache(maxsize=32)
@@ -83,20 +118,11 @@ def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
     for i, q in enumerate(moduli):
         qinv_neg, r1, r2 = modular.mont_constants(q)
         psi = primes.root_of_unity(2 * n, q)
-        ipsi = pow(psi, -1, q)
-        pw = np.empty(n, np.uint64)
-        ipw = np.empty(n, np.uint64)
-        cur, icur = 1, 1
-        for j in range(n):
-            pw[j] = cur
-            ipw[j] = icur
-            cur = cur * psi % q
-            icur = icur * ipsi % q
         q_arr[i, 0] = q
         qi_arr[i, 0] = qinv_neg
         r2_arr[i, 0] = r2
-        psi_t[i] = modular.to_mont_host(pw[rev], q)
-        ipsi_t[i] = modular.to_mont_host(ipw[rev], q)
+        psi_t[i] = modular.to_mont_host(powers(psi, n, q)[rev], q)
+        ipsi_t[i] = modular.to_mont_host(powers(pow(psi, -1, q), n, q)[rev], q)
         ninv_t[i, 0] = modular.to_mont_host(np.uint64(pow(n, -1, q)), q)
 
     ninv_std = np.array([pow(n, -1, q) for q in moduli], np.uint64)
@@ -110,6 +136,13 @@ def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
         w = mont.astype(np.uint64) * rinv.reshape(q.shape) % q
         return u32_to_torch(np.stack([w, (w << np.uint64(32)) // q], -1), device)
 
+    parts = max(1, n // TILE)
+    idx = torch.from_numpy(part_index(n, parts)).to(device)
+
+    def by_part(pairs):  # [k, N, 2] -> [k, P, N / P, 2]
+        return pairs.view(k, 1, n, 2) if parts == 1 else pairs[:, idx].contiguous()
+
+    psi_shoup, ipsi_shoup = shoup(psi_t), shoup(ipsi_t)
     return NttTables(
         moduli=moduli,
         q=col(q_arr),
@@ -120,10 +153,12 @@ def build_tables(moduli: Tuple[int, ...], n: int, device) -> NttTables:
         ninv=col(ninv_t),
         q32=u32_to_torch(q_arr[:, 0], device),
         lazy=all(q < (1 << 30) for q in moduli),
-        psi_shoup=shoup(psi_t),
-        ipsi_shoup=shoup(ipsi_t),
+        psi_shoup=psi_shoup,
+        ipsi_shoup=ipsi_shoup,
         # N^-1, and N^-1 times the inverse's last-stage twiddle ipsi_br[1]
         ninv_shoup=shoup(np.stack([ninv_t[:, 0], ipsi_t[:, 1] * ninv_std % q_arr[:, 0]], 1)),
+        psi_parts=by_part(psi_shoup),
+        ipsi_parts=by_part(ipsi_shoup),
     )
 
 
@@ -149,15 +184,14 @@ def ntt_inv(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     return ntt_kernels.ntt_inv(x.contiguous(), tb)
 
 
-def ntt_fwd_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
-    """Plain PyTorch forward NTT (CT butterflies, merged psi), in int64:
-    the stage loop of ``hhe_tpu.ops.ntt._ntt_fwd_xla``."""
+def _fwd_stages(x: torch.Tensor, tb: NttTables, stop: int) -> torch.Tensor:
+    """The forward stages with m = 1, 2, 4, ... < stop groups, in int64."""
     *lead, k, n = x.shape
     q = tb.q[..., None]  # [k,1,1]
     qi = tb.qinv_neg[..., None]
     y = x.to(I64)
     t, m = n, 1
-    while m < n:
+    while m < stop:
         t //= 2
         yv = y.reshape(*lead, k, m, 2, t)
         s = tb.psi_br[:, m : 2 * m].reshape(k, m, 1)
@@ -170,16 +204,15 @@ def ntt_fwd_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def ntt_inv_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
-    """Plain PyTorch inverse NTT (GS butterflies), in int64: the stage loop
-    of ``hhe_tpu.ops.ntt._ntt_inv_xla``."""
+def _inv_stages(x: torch.Tensor, tb: NttTables, h: int) -> torch.Tensor:
+    """The inverse stages with h, h/2, ..., 1 groups, then the factor N^-1,
+    in int64."""
     *lead, k, n = x.shape
     q = tb.q[..., None]
     qi = tb.qinv_neg[..., None]
     y = x.to(I64)
-    t, m = 1, n
-    while m > 1:
-        h = m // 2
+    while h >= 1:
+        t = n // (2 * h)
         yv = y.reshape(*lead, k, h, 2, t)
         s = tb.ipsi_br[:, h : 2 * h].reshape(k, h, 1)
         u = yv[..., 0, :]
@@ -191,9 +224,33 @@ def ntt_inv_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
             ],
             dim=-2,
         ).reshape(*lead, k, n)
-        t *= 2
-        m = h
+        h //= 2
     return modular.mont_mul(y, tb.ninv, tb.q, tb.qinv_neg).to(x.dtype)
+
+
+def ntt_fwd_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Plain PyTorch forward NTT (CT butterflies, merged psi), in int64:
+    the stage loop of ``hhe_tpu.ops.ntt._ntt_fwd_xla``."""
+    return _fwd_stages(x, tb, x.shape[-1])
+
+
+def ntt_inv_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Plain PyTorch inverse NTT (GS butterflies), in int64: the stage loop
+    of ``hhe_tpu.ops.ntt._ntt_inv_xla``."""
+    return _inv_stages(x, tb, x.shape[-1] // 2)
+
+
+def ntt_fwd_top_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """The forward stages that mix the parts of a row longer than TILE (the
+    first log2(N / TILE)), canonical: the plain version of the kernels' top
+    pass, whose own output is congruent to this mod q."""
+    return _fwd_stages(x, tb, x.shape[-1] // TILE)
+
+
+def ntt_inv_top_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """The inverse's last log2(N / TILE) stages and N^-1: the plain version
+    of the kernels' inverse top pass."""
+    return _inv_stages(x, tb, x.shape[-1] // TILE // 2)
 
 
 def pointwise_mont(a: torch.Tensor, b_mont: torch.Tensor, tb: NttTables) -> torch.Tensor:
@@ -231,16 +288,9 @@ def build_host_tables(q: int, n: int) -> HostTables:
     in exact Python integers."""
     rev = bit_reverse_indices(n)
     psi = primes.root_of_unity(2 * n, q)
-    ipsi = pow(psi, -1, q)
     dt = np.uint64 if q < (1 << 32) else object
-    pw = np.empty(n, dt)
-    ipw = np.empty(n, dt)
-    cur, icur = 1, 1
-    for j in range(n):
-        pw[j] = cur
-        ipw[j] = icur
-        cur = cur * psi % q
-        icur = icur * ipsi % q
+    pw = powers(psi, n, q, dt)
+    ipw = powers(pow(psi, -1, q), n, q, dt)
     return HostTables(q, pw[rev].copy(), ipw[rev].copy(), pow(n, -1, q))
 
 

@@ -14,16 +14,23 @@ N = 16384, several below), bringing each in and out of shared memory with one
 bulk copy while the block transforms the previous one.  Each thread runs up
 to four butterfly stages on 16 coefficients in registers between exchanges
 through bank-conflict-free shared memory, with Shoup twiddle pairs
-(``NttTables.psi_shoup`` / ``ipsi_shoup`` / ``ninv_shoup``) and lazy
+(``NttTables.psi_parts`` / ``ipsi_parts`` / ``ninv_shoup``) and lazy
 reduction when every q < 2^30.  The bytes of the row tensor and the integer
 issue rate bound it about equally; tensor cores would need many int8
 products per exact 31-bit modular product and are not used.
 
+Rows longer than a tile (N = 32768, 65536) take two launches each way: a
+top pass (``ntt_fwd_top`` / ``ntt_inv_top``, elementwise over the row's
+P = N / 16384 parts, twiddles from ``psi_shoup`` / ``ipsi_shoup``) runs the
+stages that mix the parts, before (forward) or after (inverse) the tile
+kernel transforms each part with the part's own table.
+
 The wrappers take only what the kernels take — a contiguous, 16-byte aligned
-int32 CUDA tensor ``[..., k, N]`` with 256 <= N <= 16384 a power of two and
+int32 CUDA tensor ``[..., k, N]`` with 256 <= N <= 65536 a power of two and
 the matching tables on the same device — and raise on anything else, a CPU
 tensor included.  The kernel instance is chosen from N and the moduli alone.
-``LAUNCHES`` counts the kernel launches.
+``LAUNCHES`` counts the launches of each kernel, the top passes under their
+own names.
 """
 
 from __future__ import annotations
@@ -41,11 +48,14 @@ import time
 
 import torch
 
+from .ntt import TILE  # words of one shared-memory tile: a row, or a part of a longer one
+
 MIN_N = 256
-MAX_N = 16384  # one tile of shared memory: 4N bytes <= 64 KB
+MAX_N = 65536  # four parts
 ALIGN = 16  # bytes; the bulk copies need it
 
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
+# the tile kernels (K1, K2) and, for N > TILE, the top passes
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_top": 0, "ntt_inv_top": 0}
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "ntt.cu"
@@ -76,12 +86,13 @@ def nvcc_command(source, out) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(source)]
 
 
-_KERNEL_NAME = re.compile(r"(ntt_(?:fwd|inv)_kernel)ILi(\d+)ELb([01])E")
+_KERNEL_NAME = re.compile(r"(ntt_(?:fwd|inv)(?:_top)?_kernel)ILi(\d+)ELb([01])E")
 
 
 def ptxas_report(output: str) -> dict:
     """ptxas' lines per kernel instance from nvcc's output:
-    ``{"ntt_fwd_kernel<log2 N, lazy|eager>": {"registers": ..., "spill_bytes": ...}}``."""
+    ``{"ntt_fwd_kernel<log2 N, lazy|eager>": {"registers": ..., "spill_bytes": ...}}``,
+    the top passes as ``ntt_fwd_top_kernel<...>`` / ``ntt_inv_top_kernel<...>``."""
     report, name = {}, None
     for line in output.splitlines():
         if "entry function" in line:
@@ -136,6 +147,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hhe_ntt_fwd.restype = i
     lib.hhe_ntt_inv.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
     lib.hhe_ntt_inv.restype = i
+    lib.hhe_ntt_fwd_top.argtypes = [p, p, p, p, ll, i, i, i, i, p]
+    lib.hhe_ntt_fwd_top.restype = i
+    lib.hhe_ntt_inv_top.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
+    lib.hhe_ntt_inv_top.restype = i
     lib.hhe_cuda_error_string.argtypes = [i]
     lib.hhe_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,10 +168,17 @@ def _check(x: torch.Tensor, tb) -> int:
     k, n = x.shape[-2], x.shape[-1]
     if n < MIN_N or n > MAX_N or n & (n - 1):
         raise ValueError(f"NTT kernel supports N = 2^j in [{MIN_N}, {MAX_N}], got {n}")
-    if tuple(tb.psi_shoup.shape) != (k, n, 2) or len(tb.moduli) != k:
+    # the tile kernels read the parts' tables, the top passes (N > TILE) the
+    # whole ones; checked in few comparisons, as this runs on every call
+    parts = n // TILE or 1
+    shape = tb.psi_parts.shape
+    if (len(tb.moduli) != k or shape != (k, parts, n // parts, 2)
+            or tb.ipsi_parts.shape != shape
+            or parts > 1 and not tb.psi_shoup.shape == tb.ipsi_shoup.shape == (k, n, 2)):
         raise ValueError(
-            f"tables for {len(tb.moduli)} moduli x {tb.psi_br.shape[-1]} do not "
-            f"match a tensor of {k} limbs x {n}"
+            f"tables for {len(tb.moduli)} moduli x {tb.psi_br.shape[-1]} "
+            f"({tuple(tb.psi_parts.shape)} per part) do not match a tensor of "
+            f"{k} limbs x {n}"
         )
     if x.data_ptr() % ALIGN:
         raise ValueError(f"NTT kernel needs a {ALIGN}-byte aligned tensor")
@@ -180,37 +202,59 @@ def _raise_on(rc: int, what: str):
 
 
 def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, y: torch.Tensor, tb) -> int:
-    """Launch kernel ``name`` ("ntt_fwd" or "ntt_inv") of ``lib`` from x into
-    y on the current stream, operands already checked; returns the CUDA error
-    code.  Counts nothing."""
+    """Launch kernel ``name`` (a key of ``LAUNCHES``) of ``lib`` from x into
+    y on the current stream, operands already checked (x may be y for the
+    top passes); returns the CUDA error code.  Counts nothing."""
     n, dev = x.shape[-1], x.device.index
-    args = (x.numel() // n, x.shape[-2], n.bit_length() - 1, int(tb.lazy), _max_blocks(dev), dev,
-            torch.cuda.current_stream(dev).cuda_stream)
+    shape = (x.numel() // n, x.shape[-2], n.bit_length() - 1, int(tb.lazy))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if name == "ntt_fwd":
-        return lib.hhe_ntt_fwd(x.data_ptr(), y.data_ptr(), tb.psi_shoup.data_ptr(),
-                               tb.q32.data_ptr(), *args)
-    return lib.hhe_ntt_inv(x.data_ptr(), y.data_ptr(), tb.ipsi_shoup.data_ptr(),
-                           tb.q32.data_ptr(), tb.ninv_shoup.data_ptr(), *args)
+        return lib.hhe_ntt_fwd(x.data_ptr(), y.data_ptr(), tb.psi_parts.data_ptr(),
+                               tb.q32.data_ptr(), *shape, _max_blocks(dev), dev, stream)
+    if name == "ntt_inv":
+        return lib.hhe_ntt_inv(x.data_ptr(), y.data_ptr(), tb.ipsi_parts.data_ptr(),
+                               tb.q32.data_ptr(), tb.ninv_shoup.data_ptr(), *shape,
+                               _max_blocks(dev), dev, stream)
+    if name == "ntt_fwd_top":
+        return lib.hhe_ntt_fwd_top(x.data_ptr(), y.data_ptr(), tb.psi_shoup.data_ptr(),
+                                   tb.q32.data_ptr(), *shape, dev, stream)
+    if name == "ntt_inv_top":
+        return lib.hhe_ntt_inv_top(x.data_ptr(), y.data_ptr(), tb.ipsi_shoup.data_ptr(),
+                                   tb.q32.data_ptr(), tb.ninv_shoup.data_ptr(), *shape, dev,
+                                   stream)
+    raise ValueError(f"no kernel {name!r}")
 
 
-def _run(name: str, x: torch.Tensor, tb) -> torch.Tensor:
-    rows = _check(x, tb)
-    y = torch.empty_like(x)
-    if rows == 0:
-        return y
-    _raise_on(launch(_library(), name, x, y, tb), name)
+def _launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, y: torch.Tensor, tb):
+    _raise_on(launch(lib, name, x, y, tb), name)
     LAUNCHES[name] += 1
-    return y
 
 
 def ntt_fwd(x: torch.Tensor, tb) -> torch.Tensor:
-    """Forward negacyclic NTT kernel (natural -> bit-reversed order)."""
-    return _run("ntt_fwd", x, tb)
+    """Forward negacyclic NTT kernel (natural -> bit-reversed order); a row
+    longer than a tile first goes through the top pass."""
+    rows = _check(x, tb)
+    y = torch.empty_like(x)
+    if rows:
+        lib = _library()
+        if x.shape[-1] > TILE:
+            _launch(lib, "ntt_fwd_top", x, y, tb)
+            x = y
+        _launch(lib, "ntt_fwd", x, y, tb)
+    return y
 
 
 def ntt_inv(x: torch.Tensor, tb) -> torch.Tensor:
-    """Inverse negacyclic NTT kernel (bit-reversed -> natural order)."""
-    return _run("ntt_inv", x, tb)
+    """Inverse negacyclic NTT kernel (bit-reversed -> natural order); a row
+    longer than a tile ends with the top pass."""
+    rows = _check(x, tb)
+    y = torch.empty_like(x)
+    if rows:
+        lib = _library()
+        _launch(lib, "ntt_inv", x, y, tb)
+        if x.shape[-1] > TILE:
+            _launch(lib, "ntt_inv_top", y, y, tb)
+    return y
 
 
 def reset_launches():

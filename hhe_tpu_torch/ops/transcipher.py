@@ -39,7 +39,9 @@ BSGS_N2 = 4
 I64 = torch.int64
 
 
-def galois_elts(ctx: Context, use_bsgs: bool = True) -> List[int]:
+def galois_elts(
+    ctx: Context, use_bsgs: bool = True, n1: int = BSGS_N1, n2: int = BSGS_N2
+) -> List[int]:
     """Galois elements the transcipher needs: rotate -1, column swap, +T when
     the packing is not full, and for the BSGS matmul the babystep elements
     -1..-(n1-1) and giantstep elements -n1*k."""
@@ -47,10 +49,10 @@ def galois_elts(ctx: Context, use_bsgs: bool = True) -> List[int]:
     if ctx.n // 2 != T:
         elts.add(ctx.galois_elt_from_step(T))
     if use_bsgs:
-        for j in range(1, BSGS_N1):
+        for j in range(1, n1):
             elts.add(ctx.galois_elt_from_step(-j))
-        for k in range(1, BSGS_N2):
-            elts.add(ctx.galois_elt_from_step(-k * BSGS_N1))
+        for k in range(1, n2):
+            elts.add(ctx.galois_elt_from_step(-k * n1))
     return sorted(elts)
 
 
@@ -69,17 +71,22 @@ class Transcipher:
         rk: KSwitchKey,
         gks: Dict[int, KSwitchKey],
         use_bsgs: bool = True,
+        n1: int = BSGS_N1,
+        n2: int = BSGS_N2,
     ):
+        if n1 * n2 != T:
+            raise ValueError(f"BSGS split {n1} x {n2} must cover the {T} diagonals")
         self.ctx = ctx
         self.rk = rk
         self.gks_all = gks
+        self.n1, self.n2 = n1, n2
         self.g_neg1 = ctx.galois_elt_from_step(-1)
         self.g_cols = 2 * ctx.n - 1
         self.g_t = ctx.galois_elt_from_step(T) if ctx.n // 2 != T else None
         self.gk_neg1 = gks[self.g_neg1]
         self.gk_cols = gks[self.g_cols]
         self.gk_t = gks[self.g_t] if self.g_t is not None else gks[self.g_neg1]
-        self.use_bsgs = use_bsgs and set(galois_elts(ctx, True)) <= set(gks)
+        self.use_bsgs = use_bsgs and set(galois_elts(ctx, True, n1, n2)) <= set(gks)
         if self.use_bsgs:
             self._build_bsgs_keys(gks)
         half = ctx.n // 2
@@ -124,7 +131,7 @@ class Transcipher:
                 src,
             )
 
-        baby = [inv_permuted(ctx.galois_elt_from_step(-j)) for j in range(1, BSGS_N1)]
+        baby = [inv_permuted(ctx.galois_elt_from_step(-j)) for j in range(1, self.n1)]
         self.baby_k0 = torch.stack([b[0] for b in baby])  # [n1-1, k+1, kd, N]
         self.baby_k1 = torch.stack([b[1] for b in baby])
         ident = np.arange(ctx.n)
@@ -133,14 +140,18 @@ class Transcipher:
             np.stack([ident] + [b[2] for b in baby]), device=dev
         )  # [n1, N]
         giant = [
-            inv_permuted(ctx.galois_elt_from_step(-k * BSGS_N1))
-            for k in range(1, BSGS_N2)
+            inv_permuted(ctx.galois_elt_from_step(-k * self.n1))
+            for k in range(1, self.n2)
         ]
+        if not giant:  # n2 = 1: no giantsteps
+            self.giant_k0 = self.giant_k1 = None
+            self.giant_nsrc = self.giant_csrc = self.giant_csign = None
+            return
         self.giant_k0 = torch.stack([g[0] for g in giant])  # [n2-1, k+1, kd, N]
         self.giant_k1 = torch.stack([g[1] for g in giant])
         self.giant_nsrc = torch.as_tensor(np.stack([g[2] for g in giant]), device=dev)
         csrc, csign = zip(
-            *(ctx.galois_perm(ctx.galois_elt_from_step(-k * BSGS_N1)) for k in range(1, BSGS_N2))
+            *(ctx.galois_perm(ctx.galois_elt_from_step(-k * self.n1)) for k in range(1, self.n2))
         )
         self.giant_csrc = torch.as_tensor(np.stack(csrc), device=dev)
         self.giant_csign = torch.as_tensor(np.stack(csign), device=dev)
@@ -170,7 +181,7 @@ class Transcipher:
         i_idx = np.arange(T)[:, None]
         j_idx = np.arange(T)[None, :]
         self._diag_sel = torch.as_tensor((j_idx + T - i_idx) % T, device=dev)  # [T(i), T(j)]
-        roll = (i_idx // BSGS_N1) * BSGS_N1 if self.use_bsgs else np.zeros_like(i_idx)
+        roll = (i_idx // self.n1) * self.n1 if self.use_bsgs else np.zeros_like(i_idx)
         tgt0 = (j_idx - roll) % half  # slot within row 0
         self._scatter_rows = torch.as_tensor(np.broadcast_to(i_idx, (T, T)).copy(), device=dev)
         self._scatter_cols0 = torch.as_tensor(tgt0, device=dev)
@@ -307,7 +318,7 @@ class Transcipher:
         matmul, permute-after-contraction babysteps, all babysteps and
         giantstep groups batched, and lazy mod-down over q ∪ P."""
         ctx = self.ctx
-        n1, n2 = BSGS_N1, BSGS_N2
+        n1, n2 = self.n1, self.n2
         mats_q, mats_qp = mats  # [T, k, N], [T, k+1, N]
         gk_t = keys[2]
         baby_k0, baby_k1, baby_srcs = keys[4]
@@ -353,6 +364,8 @@ class Transcipher:
         ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(torch.stack([acc0p, acc1p]), ctx.tb_qp))
         i0 = add_mod(iq[0], ip[0], q)  # [n2, k, N]
         i1 = add_mod(iq[1], ip[1], q)
+        if n2 == 1:
+            return Ciphertext(torch.stack([i0[0], i1[0]]))
 
         # giantsteps: out = inner_0 + sum_g sigma_{-g*n1}(inner_g)
         p0 = _take_rows(i0[1:], giant_csrc)

@@ -1,6 +1,8 @@
-"""Binary array container — the ``dump_array`` part of
+"""Binary serialization of ciphertexts and keys — the writing half of
 ``hhe_tpu.utils.serial``: magic, version, kind tag, shape, raw little-endian
-u32/int8 data (the same bytes as the JAX package writes)."""
+u32/int8 data, byte for byte what the JAX package writes (``utils.metrics``
+sizes protocol messages with these).  Reading back and the gRPC wire belong
+to the parties."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import struct
 import numpy as np
 import torch
 
+from ..ops import bfv
 from ..ops.ntt import u32_to_numpy
 
 MAGIC = b"HHE1"
@@ -28,3 +31,26 @@ def dump_array(arr) -> bytes:
         f"<{data.ndim}I", *data.shape
     )
     return hdr + data.tobytes()
+
+
+def dump_ciphertext(ct: bfv.Ciphertext) -> bytes:
+    return dump_array(ct.data)
+
+
+def dump_public_key(pk: bfv.PublicKey) -> bytes:
+    return dump_array(pk.data)
+
+
+def dump_kswitch(k: bfv.KSwitchKey) -> bytes:
+    a = dump_array(k.k0)
+    b = dump_array(k.k1)
+    return struct.pack("<I", len(a)) + a + b
+
+
+def dump_galois_keys(gks: dict) -> bytes:
+    out = [struct.pack("<I", len(gks))]
+    for g, k in sorted(gks.items()):
+        kb = dump_kswitch(k)
+        out.append(struct.pack("<II", g, len(kb)))
+        out.append(kb)
+    return b"".join(out)

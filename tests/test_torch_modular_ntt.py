@@ -224,7 +224,9 @@ def _misaligned(shape):
         ("strided", ValueError, "contiguous"),
         ("n=128", ValueError, "N = 2"),
         ("n=384", ValueError, "N = 2"),
+        ("n=131072", ValueError, "N = 2"),
         ("limbs", ValueError, "tables for"),
+        ("parts", ValueError, "tables for"),
     ],
 )
 def test_kernel_wrappers_refuse_what_kernels_do_not_take(case, err, match):
@@ -232,13 +234,18 @@ def test_kernel_wrappers_refuse_what_kernels_do_not_take(case, err, match):
     refusal shows here on the CPU; nothing launches."""
     mods = jprimes.ntt_primes(256, 30, 2)
     tt = tntt.build_tables(mods, 256, CPU)
+    if case == "parts":  # N = 32768 tables whose parts are not cut as the kernels need
+        tt = tntt.build_tables(tuple(jprimes.ntt_primes(32768, 30, 2)), 32768, CPU)
+        tt = tt._replace(ipsi_parts=tt.ipsi_shoup.view(2, 1, 32768, 2))
     x = {
         "misaligned": lambda: _misaligned((2, 256)),
         "int64": lambda: torch.zeros((2, 256), dtype=torch.int64),
         "strided": lambda: torch.zeros((2, 512), dtype=torch.int32)[:, ::2],
         "n=128": lambda: torch.zeros((2, 128), dtype=torch.int32),
         "n=384": lambda: torch.zeros((2, 384), dtype=torch.int32),
+        "n=131072": lambda: torch.zeros((2, 131072), dtype=torch.int32),
         "limbs": lambda: torch.zeros((3, 256), dtype=torch.int32),
+        "parts": lambda: torch.zeros((2, 32768), dtype=torch.int32),
     }[case]()
     before = dict(ntt_kernels.LAUNCHES)
     for fn in (ntt_kernels.ntt_fwd, ntt_kernels.ntt_inv):
@@ -279,23 +286,25 @@ def test_shoup_tables_match_exact_integers(n, bits, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("logn", range(8, 15))
+@pytest.mark.parametrize("logn", range(8, 17))
 def test_kernels_match_plain_on_cuda(logn):
     """On a card: both kernels equal their plain versions at every N the
-    wrappers take (one kernel instance each), for lazy (30-bit), eager
-    (31-bit) and t = 65537 tables, with fewer 64 KB tiles than the card has
-    SMs and with at least four tiles for every block."""
+    wrappers take (one kernel instance each, and the top passes above
+    N = 16384), for lazy (30-bit), eager (31-bit) and t tables (65537, or
+    the large preset's 29-bit t at N = 65536), with fewer 64 KB tiles than
+    the card has SMs and with at least four tiles for every block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = 1 << logn
-    tile_rows = ntt_kernels.MAX_N // n  # rows in one 64 KB tile
+    t = 65537 if n <= 32768 else tprimes.ntt_primes(n, 29, 1)[0]
     for bits, k in ((30, 13), (31, 15), (17, 1)):
-        mods = (65537,) if bits == 17 else tprimes.ntt_primes(n, bits, k)
+        mods = (t,) if bits == 17 else tprimes.ntt_primes(n, bits, k)
         tb = tntt.build_tables(mods, n, dev)
         rng = np.random.default_rng(n + bits)
-        for batch in (2, -(-(4 * sms + 3) * tile_rows // k)):
+        # rows for 4 tiles a block: a tile holds 16384 / N rows, or 1 / P of one
+        for batch in (2, -(-(4 * sms + 3) * tntt.TILE // (n * k))):
             x = torch.from_numpy(
                 np.stack([rng.integers(0, m, (batch, n)) for m in mods], 1).astype(np.int32)
             ).to(dev)

@@ -1,0 +1,155 @@
+"""The port's configuration, serialization and metrics against the JAX
+package's (CPU): the same defaults, the same bytes, the same sizes and the
+same report text.  Keys and ciphertexts are made by the JAX package on the
+``test_utils.py`` context (N=1024, 3 limbs, seed 5) and carried over."""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hhe_tpu.ops import bfv as jbfv
+from hhe_tpu.utils import config as jconfig
+from hhe_tpu.utils import metrics as jmetrics
+from hhe_tpu.utils import serial as jserial
+from hhe_tpu.workloads.hhe_inference import _split_batch as j_split_batch
+from hhe_tpu_torch import convert
+from hhe_tpu_torch.ops import bfv as tbfv
+from hhe_tpu_torch.utils import config as tconfig
+from hhe_tpu_torch.utils import metrics as tmetrics
+from hhe_tpu_torch.utils import serial as tserial
+from hhe_tpu_torch.workloads.hhe_inference import _split_batch as t_split_batch
+
+CPU = torch.device("cpu")
+PARAMS = dict(n=1024, data_limbs=3, seed=5)
+
+
+@pytest.fixture(scope="module")
+def objs():
+    """JAX context and keys, a batched ciphertext, and the port's copies."""
+    jc = jbfv.Context(jbfv.BFVParams(**PARAMS))
+    sk = jc.keygen_secret()
+    pk = jc.keygen_public(sk)
+    rk = jc.keygen_relin(sk)
+    gks = jc.keygen_galois(sk, [jc.galois_elt_from_step(s) for s in (1, -2)])
+    cts = [jc.encrypt(pk, jc.encode(np.arange(50) * i)) for i in range(1, 4)]
+    batch = jbfv.Ciphertext(jnp.stack([c.data for c in cts], 1))  # [2, 3, k, N]
+    return dict(
+        jc=jc, tc=tbfv.Context(tbfv.BFVParams(**PARAMS), device="cpu"),
+        sk=sk, pk=pk, rk=rk, gks=gks, ct=cts[0], batch=batch,
+        tsk=convert.secret_key(sk), tpk=convert.public_key(pk),
+        trk=convert.kswitch_key(rk, CPU), tgks=convert.galois_keys(gks, CPU),
+        tct=convert.ciphertext(cts[0], CPU), tbatch=convert.ciphertext(batch, CPU),
+    )
+
+
+@pytest.mark.parametrize("what", ["array_u32", "array_i8", "ciphertext", "batch",
+                                  "public_key", "kswitch", "galois_keys"])
+def test_dump_bytes_identical(objs, what):
+    o = objs
+    got, want = {
+        "array_u32": (lambda: tserial.dump_array(o["tct"].data),
+                      lambda: jserial.dump_array(np.asarray(o["ct"].data))),
+        "array_i8": (lambda: tserial.dump_array(o["tsk"].s_small),
+                     lambda: jserial.dump_array(o["sk"].s_small)),
+        "ciphertext": (lambda: tserial.dump_ciphertext(o["tct"]),
+                       lambda: jserial.dump_ciphertext(o["ct"])),
+        "batch": (lambda: tserial.dump_ciphertext(o["tbatch"]),
+                  lambda: jserial.dump_ciphertext(o["batch"])),
+        "public_key": (lambda: tserial.dump_public_key(o["tpk"]),
+                       lambda: jserial.dump_public_key(o["pk"])),
+        "kswitch": (lambda: tserial.dump_kswitch(o["trk"]), lambda: jserial.dump_kswitch(o["rk"])),
+        "galois_keys": (lambda: tserial.dump_galois_keys(o["tgks"]),
+                        lambda: jserial.dump_galois_keys(o["gks"])),
+    }[what]
+    b = got()
+    assert isinstance(b, bytes) and b == want()
+    if what == "ciphertext":  # and the JAX package reads it back
+        assert np.array_equal(np.asarray(jserial.load_ciphertext(b).data), np.asarray(o["ct"].data))
+
+
+def test_metric_sizes_match_jax(objs):
+    """The size functions of test_utils.py::test_metrics, equal to the JAX
+    package's to the byte."""
+    o = objs
+    assert tmetrics.he_pk_size(o["tpk"]) == jmetrics.he_pk_size(o["pk"]) > 0
+    assert tmetrics.he_key_size(o["trk"], o["tgks"]) == jmetrics.he_key_size(o["rk"], o["gks"])
+    assert tmetrics.he_key_size() == jmetrics.he_key_size() == 0.0
+    assert tmetrics.he_vec_size([o["tct"]]) == jmetrics.he_vec_size([o["ct"]]) > 0
+    assert tmetrics.he_vec_size(t_split_batch(o["tbatch"])) == jmetrics.he_vec_size(
+        j_split_batch(o["batch"])
+    )
+    sym = np.arange(600, dtype=np.uint64).reshape(2, 300)
+    assert tmetrics.sym_enc_data_size(sym) == jmetrics.sym_enc_data_size(sym)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 64), (2, 5, 3, 64), (3, 2, 4, 32)])
+def test_he_vec_size_analytic(shape):
+    """The shape-only meter equals serializing each sample frame, as in
+    test_utils.py::test_he_vec_size_analytic_matches_serialized, and the JAX
+    package's meter."""
+    ct = tbfv.Ciphertext(torch.zeros(shape, dtype=torch.int32))
+    jct = jbfv.Ciphertext(jnp.zeros(shape, jnp.uint32))
+    got = tmetrics.he_vec_size_analytic(ct)
+    assert got == tmetrics.he_vec_size(t_split_batch(ct)) == jmetrics.he_vec_size_analytic(jct)
+
+
+def test_timer_ledger_merge_and_report_match_jax(capsys):
+    """Timer, CommLedger and merge behave as the JAX package's, and the same
+    timings and sizes give the same report and the same text."""
+    pairs = []
+    for mod in (tmetrics, jmetrics):
+        ledger = mod.CommLedger()
+        ledger.add("analyst-csp", 1.5)
+        ledger.add("analyst-csp", 0.5)
+        ledger.add("user-csp", 0.25)
+        assert ledger.report() == {"analyst-csp": 2.0, "user-csp": 0.25}
+        t = mod.Timer()
+        with t.phase("user"):
+            pass
+        assert "user" in t.report_ms()
+        t.phases = {"user": 0.0123, "csp": 1.5, "analyst": 0.25}
+        t2 = mod.Timer()
+        t2.phases = {"csp": 0.5}
+        mt, ml = mod.merge([t, t2], [ledger, ledger])
+        assert mt.phases == {"user": 0.0123, "csp": 2.0, "analyst": 0.25}
+        assert ml.report() == {"analyst-csp": 4.0, "user-csp": 0.5}
+        rep = mod.experiment_report(mt, ml, accuracy=0.5, extra={"samples": 3})
+        pairs.append((rep, mod.format_experiment_report(rep), mod.print_time("x", 1234.5)))
+    assert pairs[0] == pairs[1]
+    rep = pairs[0][0]
+    assert set(rep) == {"computation_ms", "communication_mb", "accuracy", "samples"}
+    assert rep["computation_ms"]["total"] == 2262.3 and rep["communication_mb"]["total"] == 4.5
+
+
+def test_print_parameters_and_noise_match_jax(objs, capsys):
+    o = objs
+    assert tmetrics.print_parameters(o["tc"]) == jmetrics.print_parameters(o["jc"])
+    capsys.readouterr()
+    tb = tmetrics.print_noise(o["tc"], o["tsk"], o["tct"], tag="ct")
+    t_out = capsys.readouterr().out
+    jb = jmetrics.print_noise(o["jc"], o["sk"], o["ct"], tag="ct")
+    assert tb == jb and t_out == capsys.readouterr().out
+    many = tmetrics.print_noise(o["tc"], o["tsk"], t_split_batch(o["tbatch"]))
+    assert len(many) == 3 and "min" in capsys.readouterr().out
+
+
+def test_config_matches_jax():
+    """Every default of Config equals the JAX package's; HEConfig maps to the
+    same BFVParams; RunConfig caps samples only under dry_run."""
+    assert dataclasses.asdict(tconfig.DEFAULT) == dataclasses.asdict(jconfig.DEFAULT)
+    for he in (tconfig.HEConfig(), tconfig.HEConfig().replace(mod_degree=1024, data_modulus_bits=91)):
+        jhe = jconfig.HEConfig(**dataclasses.asdict(he))
+        assert dataclasses.asdict(he.to_bfv_params(3)) == dataclasses.asdict(jhe.to_bfv_params(3))
+    assert tconfig.HEConfig().to_bfv_params().data_limbs == 13
+    for run, n, want in (
+        (tconfig.RunConfig(), 10, 2),
+        (tconfig.RunConfig(dry_run_num_samples=20), 10, 10),
+        (tconfig.RunConfig(dry_run=False), 10, 10),
+    ):
+        assert run.sample_limit(n) == want
+        assert jconfig.RunConfig(**dataclasses.asdict(run)).sample_limit(n) == want
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tconfig.DEFAULT.run.dry_run = False
