@@ -1,10 +1,11 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ecg-full-samples N]
 
 Phases (any failure propagates and the exit code is nonzero):
 
-0. device: the card's name and power limit, torch's CUDA version, nvcc;
+0. device: the card's name and power limit, torch's CUDA version, nvcc, and
+   whether ``grpc`` and ``google.protobuf`` import;
 1. build: compile the NTT kernels from ``hhe_tpu_torch/csrc``; a kernel
    instance that spills registers fails;
 2. kernels: each kernel against its plain PyTorch version (``torch.equal``)
@@ -21,11 +22,24 @@ Phases (any failure propagates and the exit code is nonzero):
    the run.  Then the timings: decompose at B=64 with a fresh nonce per rep
    (PASTA encryption outside the timed region), one keystream block, the FC
    product, the batched decrypt; and one keystream block under
-   ``torch.profiler`` (device busy time by kernel);
+   ``torch.profiler`` (device busy time by kernel).  On the same stack:
+   ``mod_switch_to_next`` of the decomposed sample from 13 limbs to one,
+   decrypting right at every level, with ``cipher_size`` before and after;
+   then the full-dataset ECG run, ``hhe_ecg_full_inference`` (surrogate
+   ecg_512 weights and a 13,245-row label file written to temporary CSVs,
+   chunks of 512, products in slices of 64), over ``--ecg-full-samples``
+   samples (default ECG_FULL_CAP; 0 for all 13,245), agreement 1.0;
 4. 1FC path: ``hhe_1fc_inference`` (SpO2: 300 words, three blocks, mask,
    flatten, ct x ct, log-depth vec-sum) on B=64 samples at N=16384 with
    FC_LIMBS limbs, its hard parity check, the noise budgets after
    decompose+flatten and after FC+sum, the experiment report;
+   FashionMNIST: ``hhe_fmnist_1fc_inference`` (784 -> 10 + bias, seven
+   blocks, the C class rows in one batched pass) on B=4 at FMNIST_LIMBS
+   limbs, its hard mod-t parity, the report and the stage budgets;
+   MNIST 2FC: ``hhe_2fc_inference`` (784 -> 128 -> square -> 10) on B=4 at
+   MNIST_LIMBS limbs, MNIST_ROW_CHUNK rows a pass, its hard mod-t parity;
+   an untimed warm-up with the stage budgets, then the timed run:
+   inferences/s, the transcipher's and the 2FC pass's time, peak memory;
 5. large preset (a): the 58-limb N=65536 chain: encrypt, decrypt, device
    galois key, rotate_rows(-1), each with > 1000 bits of budget, and the
    tile kernels and the top passes launched; then ``default_context(32768)``
@@ -49,13 +63,17 @@ Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
+import importlib
 import io
 import itertools
 import json
+import os
 import re
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -75,6 +93,14 @@ FC_LIMBS = 13  # the 1FC path's data limbs at N=16384
 # the large preset's keystream block: the fewest data limbs whose last round
 # keeps >= 20 bits of noise budget (tools/torch_keystream_budgets.py)
 LARGE_KS_LIMBS = 17
+MITBIH_TEST_ROWS = 13245  # the reference's ECG test set
+ECG_FULL_BATCH = 512  # samples per decompose in the full ECG run
+ECG_FULL_CAP = 4096  # samples the full ECG run takes by default (--ecg-full-samples)
+FMNIST_LIMBS = 13  # the production chain holds the FashionMNIST FC
+MNIST_B = 4  # images per 2FC batch, the JAX package's
+MNIST_LIMBS = 16  # the 2FC path's chain: fc1, rotate-reduce and square need ~70 bits
+# hidden rows per 2FC pass: 32 peaks at ~43 GiB, 64 runs out of the card's 80
+MNIST_ROW_CHUNK = 32
 
 
 def log(msg: str):
@@ -124,6 +150,12 @@ def phase_device():
 
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc {ntt_kernels.nvcc_path()}")
+    # the parties' wire (not ported yet) needs these on the card's machine
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            log(f"{mod} {importlib.import_module(mod).__version__}")
+        except ImportError as e:
+            log(f"{mod} not importable: {e}")
     return smi
 
 
@@ -575,7 +607,30 @@ def phase_main_path():
     stats["peak_mem_gib_after_timing"] = torch.cuda.max_memory_allocated() / 2**30
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
-    return stack, launches, rec.calls, stats
+    return stack, launches, rec.calls, stats, (d0, x[0])
+
+
+def reference_files(tmp, **arrays):
+    """Write each array as a reference-layout CSV (``save_csv_matrix``) in
+    directory `tmp`; returns {name: path}."""
+    from hhe_tpu_torch.models import pocketnn
+
+    paths = {}
+    for name, arr in arrays.items():
+        paths[name] = os.path.join(tmp, f"{name}.csv")
+        pocketnn.save_csv_matrix(paths[name], arr)
+    return paths
+
+
+def debug_budgets(fn) -> dict:
+    """Run fn() with RunConfig's debugging prints captured; returns
+    {stage: noise budget bits} as printed."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        fn()
+    log(printed.getvalue().rstrip())
+    return {k: int(v) for k, v in
+            re.findall(r"noise budget after (.+?): (-?\d+) bits", printed.getvalue())}
 
 
 def phase_1fc():
@@ -616,18 +671,207 @@ def phase_1fc():
     stats["communication_mb"] = out["report"]["communication_mb"]
     # the stage budgets, as RunConfig's debugging prints them; a second run,
     # so that the host's noise budgets stay out of the timed report above
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        wk.hhe_1fc_inference(stack, w, x, check_parity=True,
-                             run=RunConfig(dry_run=False, debugging=True))
-    log(printed.getvalue().rstrip())
-    budgets = dict(re.findall(r"noise budget after (.+?): (-?\d+) bits", printed.getvalue()))
-    stats["noise_budget_after_decompose_flatten"] = int(budgets["decomposition+flatten"])
-    stats["noise_budget_after_fc_sum"] = int(budgets["encrypted FC + vec_sum"])
+    budgets = debug_budgets(lambda: wk.hhe_1fc_inference(
+        stack, w, x, check_parity=True, run=RunConfig(dry_run=False, debugging=True)))
+    stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
+    stats["noise_budget_after_fc_sum"] = budgets["encrypted FC + vec_sum"]
     log(f"1fc: hhe_1fc_inference B={B} L={FC_L} at N=16384 / {FC_LIMBS} limbs: parity held, "
         f"launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
+    return stats, launches, rec.calls
+
+
+def phase_ecg_full(stack, samples):
+    """The full-dataset ECG run on the ECG phase's stack:
+    ``hhe_ecg_full_inference`` with surrogate ecg_512 weights in
+    [-508, 508] and a 13,245-row label file (temporary CSVs), `samples` of
+    them (RunConfig's dry run; all with 0) in chunks of 512 samples, the
+    product in slices of 64, one batched decrypt per chunk.  Its agreement
+    with the plaintext model must be 1.0 and both kernels must launch."""
+    import torch
+
+    from hhe_tpu_torch.ops import ntt_kernels, transcipher
+    from hhe_tpu_torch.utils.config import RunConfig
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    rng = np.random.default_rng(12)
+    run = RunConfig(dry_run=True, dry_run_num_samples=samples) if samples else None
+    with tempfile.TemporaryDirectory() as tmp:
+        files = reference_files(tmp, fc1_weight=rng.integers(-508, 509, (transcipher.T, 1)))
+        np.savetxt(os.path.join(tmp, "mitbih_bin_y_test.csv"),
+                   rng.integers(0, 2, MITBIH_TEST_ROWS), fmt="%d")
+        torch.cuda.reset_peak_memory_stats()
+        ntt_kernels.reset_launches()
+        with ShapeRecorder() as rec:
+            out, wall = timed(lambda: wk.hhe_ecg_full_inference(
+                stack, files["fc1_weight"], batch=ECG_FULL_BATCH, eval_batch=B, run=run,
+                labels_root=tmp))
+        launches = dict(ntt_kernels.LAUNCHES)
+    rep = out["report"]
+    stats = {"samples": rep["samples"], "batch": ECG_FULL_BATCH, "eval_batch": B,
+             "wall_s": wall, "samples_per_s": rep["samples"] / wall,
+             "agreement": out["agreement"],
+             "computation_ms": rep["computation_ms"], "communication_mb": rep["communication_mb"],
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"ecg_full: hhe_ecg_full_inference over {rep['samples']} samples, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    if out["agreement"] != 1.0:
+        raise AssertionError(f"full ECG run: agreement {out['agreement']} with the plaintext model")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the full ECG run: {launches}")
+    return stats, launches, rec.calls
+
+
+def phase_mod_switch(stack, ct, values):
+    """``mod_switch_to_next`` from 13 limbs down to one on a decomposed ECG
+    sample: at every level it must decrypt to its 128 values; its noise
+    budget per level and ``cipher_size`` before and after."""
+    from hhe_tpu_torch.ops import transcipher
+    from hhe_tpu_torch.utils import metrics
+
+    ctx, sk = stack.ctx, stack.sk
+    stats = {"cipher_size_mb": metrics.cipher_size(ctx, ct),
+             "cipher_size_mb_one_limb": metrics.cipher_size(ctx, ct, mod_switch=True),
+             "budget_by_limbs": {}, "switch_ms": []}
+    while ct.data.shape[-2] > 1:
+        ct, dt = timed(lambda: ctx.mod_switch_to_next(ct))
+        limbs = ct.data.shape[-2]
+        stats["switch_ms"].append(1e3 * dt)
+        stats["budget_by_limbs"][limbs] = ctx.noise_budget(sk, ct)
+        if not np.array_equal(ctx.decode(ctx.decrypt(sk, ct))[: transcipher.T], values):
+            raise AssertionError(f"mod-switched sample decrypts wrong at {limbs} limbs")
+    if ct.data.device.type != "cuda":
+        raise AssertionError("mod_switch_to_next left the card")
+    log(f"mod_switch: 13 -> 1 limbs, every level decrypts to the sample; {stats}")
+    return stats
+
+
+def phase_fmnist():
+    """The FashionMNIST one-layer path: ``hhe_fmnist_1fc_inference`` at
+    N=16384 / FMNIST_LIMBS limbs on B=4 surrogate inputs in [0, 4] through
+    the transcipher (7 blocks, mask, flatten), 784 x 10 surrogate weights
+    and 10 biases in [-128, 128] (temporary CSVs), its hard mod-t parity;
+    the experiment report; the stage budgets from a second run with
+    RunConfig's debugging."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.utils.config import RunConfig
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    stack, setup_s = timed(lambda: wk.build_stack(
+        bfv.BFVParams(n=16384, data_limbs=FMNIST_LIMBS, seed=1), input_len=784,
+        device_keygen=True, seed=1))
+    rng = np.random.default_rng(13)
+    stats = {"limbs": FMNIST_LIMBS, "batch": MNIST_B, "setup_s": setup_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = reference_files(tmp, weight=rng.integers(-128, 129, (784, 10)),
+                                bias=rng.integers(-128, 129, (1, 10)))
+
+        def run(cfg=None):
+            return wk.hhe_fmnist_1fc_inference(
+                stack, batch=MNIST_B, via_transcipher=True, check_parity=True, run=cfg,
+                weight_csv=files["weight"], bias_csv=files["bias"])
+
+        torch.cuda.reset_peak_memory_stats()
+        ntt_kernels.reset_launches()
+        with ShapeRecorder() as rec:
+            out, stats["inference_s"] = timed(run)
+        launches = dict(ntt_kernels.LAUNCHES)
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        budgets = debug_budgets(lambda: run(RunConfig(dry_run=False, debugging=True)))
+    stats["computation_ms"] = out["report"]["computation_ms"]
+    stats["communication_mb"] = out["report"]["communication_mb"]
+    stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
+    stats["noise_budget_after_fc"] = budgets["fmnist 1fc eval"]
+    log(f"fmnist_1fc: B={MNIST_B}, 784 -> 10 + bias at N=16384 / {FMNIST_LIMBS} limbs: "
+        f"parity held, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the FMNIST path: {launches}")
+    return stats, launches, rec.calls
+
+
+class PhaseTimer:
+    """Times calls of the named functions of `module` (device synchronised
+    before and after each), summed per name, while the context is open."""
+
+    def __init__(self, module, names):
+        self.mod, self.orig = module, {n: getattr(module, n) for n in names}
+        self.seconds = dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def rec(*args, _fn=fn, _name=name, **kw):
+                out, dt = timed(lambda: _fn(*args, **kw))
+                self.seconds[_name] += dt
+                return out
+            setattr(self.mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def phase_mnist_2fc():
+    """The MNIST 2FC path, the most demanding model of the repo:
+    ``hhe_2fc_inference`` 784 -> 128 -> square -> 10 on B=4 surrogate 2-bit
+    images (levels 0-4, ~80% zeros) with 2-bit signed surrogate weights in
+    [-2, 1], through the transcipher (7 blocks, mask, flatten), at N=16384
+    with MNIST_LIMBS limbs (below 128-bit security: the JAX package's flag),
+    MNIST_ROW_CHUNK hidden rows a pass, its hard mod-t parity.  An untimed
+    warm-up with RunConfig's debugging gives the stage budgets; then, the
+    keystream caches cleared, the timed run (a new key ciphertext, so its
+    seven keystream blocks are evaluated again): inferences/s over the
+    transcipher and the fc1/square/fc2 pass, and the peak memory."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.utils.config import RunConfig
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    stack, setup_s = timed(lambda: wk.build_stack(
+        bfv.BFVParams(n=16384, data_limbs=MNIST_LIMBS, seed=1), input_len=784,
+        device_keygen=True, seed=1))
+    rng = np.random.default_rng(14)
+    w1 = rng.integers(-2, 2, (784, 128))
+    w2 = rng.integers(-2, 2, (128, 10))
+    x = rng.integers(0, 5, (MNIST_B, 784)) * (rng.random((MNIST_B, 784)) >= 0.8)
+
+    def run(cfg=None):
+        return wk.hhe_2fc_inference(stack, w1, w2, x, via_transcipher=True, check_parity=True,
+                                    row_chunk=MNIST_ROW_CHUNK, run=cfg)
+
+    stats = {"limbs": MNIST_LIMBS, "batch": MNIST_B, "row_chunk": MNIST_ROW_CHUNK,
+             "sec_level": "below-128-bit (16 x 30-bit limbs at N=16384; the JAX "
+                          "package's mnist_2fc_sec_level)",
+             "setup_s": setup_s, "input_zero_share": float(np.mean(x == 0))}
+    budgets, stats["warmup_s"] = timed(
+        lambda: debug_budgets(lambda: run(RunConfig(dry_run=False, debugging=True))))
+    stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
+    stats["noise_budget_after_2fc"] = budgets["2FC eval"]
+    stack.tc._ks_cache.clear()
+    stack.tc._pt_cache.clear()
+    free_device()
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec, PhaseTimer(wk, ("csp_decompose", "csp_eval_2fc")) as pt:
+        out, stats["inference_s"] = timed(run)
+    launches = dict(ntt_kernels.LAUNCHES)
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["transcipher_s"] = pt.seconds["csp_decompose"]
+    stats["eval_2fc_s"] = pt.seconds["csp_eval_2fc"]
+    stats["inferences_per_s"] = MNIST_B / (stats["transcipher_s"] + stats["eval_2fc_s"])
+    stats["predictions"] = out["predictions"].tolist()
+    log(f"mnist_2fc: B={MNIST_B}, 784 -> 128 -> square -> 10 at N=16384 / {MNIST_LIMBS} limbs, "
+        f"row_chunk {MNIST_ROW_CHUNK}: parity held, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the 2FC path: {launches}")
     return stats, launches, rec.calls
 
 
@@ -858,17 +1102,31 @@ def main():
 
     from hhe_tpu_torch.ops import pasta
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ecg-full-samples", type=int, default=ECG_FULL_CAP,
+                    help=f"samples of the full ECG run (0: all {MITBIH_TEST_ROWS}; "
+                         f"default {ECG_FULL_CAP})")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     phase_kernels()
     launches, calls = {}, {}
-    stack, launches["ecg"], calls["ecg"], stats = phase_main_path()
+    stack, launches["ecg"], calls["ecg"], stats, (d0, x0) = phase_main_path()
     enc_key = stack.tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
     prof = phase_profile(stack.tc, enc_key, stats["block_ms"], "ECG keystream")
-    del stack, enc_key
+    mod_switch = phase_mod_switch(stack, d0, x0)
+    del enc_key, d0
+    free_device()
+    ecg_full, launches["ecg_full"], calls["ecg_full"] = phase_ecg_full(
+        stack, args.ecg_full_samples)
+    del stack
     free_device()
     fc, launches["1fc"], calls["1fc"] = phase_1fc()
+    free_device()
+    fmnist, launches["fmnist_1fc"], calls["fmnist_1fc"] = phase_fmnist()
+    free_device()
+    mnist, launches["mnist_2fc"], calls["mnist_2fc"] = phase_mnist_2fc()
     free_device()
     chain, launches["large_chain"], calls["large_chain"] = phase_large_chain()
     free_device()
@@ -878,7 +1136,8 @@ def main():
     free_device()
     rows = kernel_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "1fc": fc,
+    print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
+                      "ecg_full": ecg_full, "1fc": fc, "fmnist_1fc": fmnist, "mnist_2fc": mnist,
                       "large_chain": chain, "rotation_32768": rot32k,
                       "large_keystream": large}), flush=True)
     print(smi, flush=True)

@@ -1,12 +1,14 @@
-"""Integer sigmoids of the HHE pipeline — the part of
-``hhe_tpu.models.pocketnn`` that the encrypted ECG path needs:
+"""Integer sigmoids and weight CSV IO of the HHE pipeline — the part of
+``hhe_tpu.models.pocketnn`` that the encrypted workloads need:
 ``simple_pocket_sigmoid`` (reference ``src/util/utils.cpp:56-76``) and
 ``int_sigmoid`` (``src/util/utils.h:94-100``), on int32 tensors with C-style
-truncating division.
+truncating division; ``read_csv_matrix`` / ``save_csv_matrix`` for the
+reference's weight files (``matrix.h:134-159``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PKT_MAX = 127
@@ -51,3 +53,22 @@ def int_sigmoid(x) -> torch.Tensor:
     """Step function: 0 for x <= 0, else 1."""
     x = torch.as_tensor(x)
     return (x > 0).to(torch.int32)
+
+
+def read_csv_matrix(path) -> np.ndarray:
+    """Integer matrix from a reference weight CSV (trailing commas allowed)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            vals = [v for v in line.strip().split(",") if v.strip() != ""]
+            if vals:
+                rows.append([int(float(v)) for v in vals])
+    return np.asarray(rows, np.int64)
+
+
+def save_csv_matrix(path, mat: np.ndarray):
+    """Write a matrix in the reference's CSV layout (a comma after every value)."""
+    mat = np.asarray(mat)
+    with open(path, "w") as f:
+        for row in np.atleast_2d(mat):
+            f.write(",".join(str(int(v)) for v in row) + ",\n")

@@ -561,6 +561,36 @@ class Context:
         mx = int(max(r.max(), 1))
         return max(0, base.Q.bit_length() - 1 - mx.bit_length() - 1)
 
+    def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
+        """Drop the last data limb with divide-and-round (SEAL
+        Evaluator::mod_switch_to_next / RNSTool::divide_and_round_q_last:
+        c'_i = [(c_i - [c + q_last/2]_{q_last} + q_last/2) / q_last]_{q_i}).
+
+        [size, (B, ...) kc, N] -> [size, (B, ...) kc-1, N] on the context's
+        device, in int64 (every product is below 2^62), bit-identical to the
+        JAX package's numpy u64 version."""
+        c = ct.data.to(self.device)
+        kc = c.shape[-2]
+        if kc < 2:
+            raise ValueError("the ciphertext is already at the lowest level")
+        q_last = self.q_moduli[kc - 1]
+        half = q_last >> 1
+        qs = self.q_moduli[: kc - 1]
+        q, half_q, inv = (
+            torch.tensor(v, dtype=I64, device=self.device)[:, None]
+            for v in (qs, [half % qi for qi in qs], [pow(q_last, -1, qi) for qi in qs])
+        )
+        x_last = (c[..., kc - 1 :, :].to(I64) + half) % q_last  # [..., 1, N]
+        tmp = (x_last % q + q - half_q) % q
+        out = (c[..., : kc - 1, :].to(I64) + q - tmp) % q * inv % q
+        return Ciphertext(out.to(torch.int32))
+
+    def mod_switch_to(self, ct: Ciphertext, levels: int) -> Ciphertext:
+        """Apply mod_switch_to_next `levels` times."""
+        for _ in range(levels):
+            ct = self.mod_switch_to_next(ct)
+        return ct
+
     # ------------------------------------------------------------------
     # Plaintext device preparation (for the evaluator)
     # ------------------------------------------------------------------

@@ -6,8 +6,8 @@ accounting in ``sealhelper.cpp:279-371`` / ``pastahelper.cpp:399-411``
 (he_pk_key_size / he_key_size / he_vec_size / sym_enc_data_size), and the
 per-edge communication report in ``hhe_pktnn_examples.cpp:373-380``.  Sizes
 are those of ``utils.serial``'s bytes, equal to the JAX package's.  Noise
-budgets come from ``Context.noise_budget``.  ``cipher_size`` (sizes after
-modulus switching) waits for ``mod_switch_to_next``.
+budgets come from ``Context.noise_budget``; ``cipher_size`` meters a
+ciphertext after ``Context.mod_switch_to_next``.
 """
 
 from __future__ import annotations
@@ -62,6 +62,24 @@ def he_vec_size_analytic(ct: bfv.Ciphertext) -> float:
         b, per = shape[1], (shape[0],) + shape[2:]
     hdr = 6 + 4 * len(per)  # serial.dump_array: <4sBB> magic/kind/ndim + dims
     return b * (int(np.prod(per)) * 4 + hdr) / MB
+
+
+def cipher_size(
+    ctx: bfv.Context,
+    ct: bfv.Ciphertext,
+    mod_switch: bool = False,
+    levels_from_last: int = 0,
+) -> float:
+    """Ciphertext size in MB, optionally after switching down the modulus
+    chain first (reference SEALZpCipher::get_cipher_size,
+    SEAL_Cipher.cpp:363-378).  The reference switches to the last (1-limb)
+    level and walks up ``levels_from_last`` levels, so the final limb count
+    is ``1 + levels_from_last`` whatever the starting level."""
+    if mod_switch:
+        target = min(1 + levels_from_last, ct.data.shape[-2])
+        while ct.data.shape[-2] > target:
+            ct = ctx.mod_switch_to_next(ct)
+    return size_mb(serial.dump_ciphertext(ct))
 
 
 def sym_enc_data_size(records: np.ndarray, bits_per_word: int = 8) -> float:

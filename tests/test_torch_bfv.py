@@ -229,3 +229,49 @@ def test_context_needs_cuda_or_explicit_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             tbfv.Context(params)
     assert tbfv.Context(params, device="cpu").device.type == "cpu"
+
+
+def test_mod_switch_to_next_matches_jax(pair):
+    """As test_bfv.py::test_mod_switch_to_next: after one and after two
+    switches the ciphertext is bit-identical to the JAX package's and still
+    decrypts to its values, down to one limb; a batched ciphertext switches
+    sample by sample; a 1-limb ciphertext cannot switch."""
+    jc, tc, jk, tk, jcts, tcts, vals = pair
+    ct, jct = tcts[0], jcts[0]
+    for level in (1, 2):
+        ct, jct = tc.mod_switch_to_next(ct), jc.mod_switch_to_next(jct)
+        assert tuple(ct.data.shape) == (2, tc.k - level, tc.n)
+        assert ct.data.dtype == torch.int32 and same(ct.data, jct.data)
+        assert np.array_equal(tc.decode(tc.decrypt(tk["sk"], ct)), vals[0])
+        assert tc.noise_budget(tk["sk"], ct) > 0
+    assert torch.equal(tc.mod_switch_to(tcts[0], 2).data, ct.data)
+    batch = tbfv.Ciphertext(torch.stack([c.data for c in tcts], dim=1))
+    lower = tc.mod_switch_to_next(batch)
+    for i, c in enumerate(tcts):
+        assert torch.equal(lower.data[:, i], tc.mod_switch_to_next(c).data)
+    last = tc.mod_switch_to(ct, tc.k - 3)
+    assert last.data.shape[-2] == 1
+    assert np.array_equal(tc.decode(tc.decrypt(tk["sk"], last)), vals[0])
+    with pytest.raises(ValueError, match="lowest level"):
+        tc.mod_switch_to_next(last)
+    with pytest.raises(AssertionError):
+        jc.mod_switch_to(jct, tc.k - 2)
+
+
+@pytest.mark.parametrize("levels_from_last", [0, 2, 9])
+def test_cipher_size_matches_jax(pair, levels_from_last):
+    """As test_bfv.py::test_cipher_size_levels_from_last_semantics: the size
+    after switching to 1 + levels_from_last limbs (clamped at the
+    ciphertext's own) equals the JAX package's, and so does the size without
+    a switch."""
+    from hhe_tpu.utils import metrics as jmetrics
+    from hhe_tpu_torch.utils import metrics as tmetrics
+
+    jc, tc, _, _, jcts, tcts, _ = pair
+    got = tmetrics.cipher_size(tc, tcts[1], mod_switch=True, levels_from_last=levels_from_last)
+    want = jmetrics.cipher_size(jc, jcts[1], mod_switch=True, levels_from_last=levels_from_last)
+    full = tmetrics.cipher_size(tc, tcts[1])
+    assert got == want and full == jmetrics.cipher_size(jc, jcts[1])
+    limbs = min(1 + levels_from_last, tc.k)
+    assert (got == full) == (limbs == tc.k)
+    assert got < full * (limbs + 0.5) / tc.k

@@ -153,3 +153,75 @@ def test_config_matches_jax():
         assert jconfig.RunConfig(**dataclasses.asdict(run)).sample_limit(n) == want
     with pytest.raises(dataclasses.FrozenInstanceError):
         tconfig.DEFAULT.run.dry_run = False
+
+
+def _write_idx(path, magic, dims, payload, gz):
+    import gzip
+    import struct
+
+    raw = struct.pack(">" + "I" * (1 + len(dims)), magic, *dims) + payload.tobytes()
+    if gz:
+        with gzip.open(str(path) + ".gz", "wb") as f:
+            f.write(raw)
+    else:
+        path.write_bytes(raw)
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["raw", "gz"])
+def test_loaders_read_idx_like_jax(tmp_path, gz):
+    """idx3 images and idx1 labels written to a temporary MNIST-layout
+    directory, raw or gzipped: both packages' loaders read the same arrays,
+    with and without a limit and the 2-bit quantization."""
+    from hhe_tpu.models import loaders as jloaders
+    from hhe_tpu_torch.models import loaders as tloaders
+
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (5, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, 5, dtype=np.uint8)
+    _write_idx(tmp_path / "t10k-images-idx3-ubyte", 2051, (5, 28, 28), images, gz)
+    _write_idx(tmp_path / "t10k-labels-idx1-ubyte", 2049, (5,), labels, gz)
+    for limit in (None, 3):
+        x, y = tloaders.load_mnist_test(str(tmp_path), limit=limit)
+        jx, jy = jloaders.load_mnist_test(str(tmp_path), limit=limit)
+        n = 5 if limit is None else limit
+        assert x.shape == (n, 784) and np.array_equal(x, jx) and np.array_equal(y, jy)
+        assert np.array_equal(y, labels[:n]) and x.max() <= 4
+    xf, _ = tloaders.load_fmnist_test(str(tmp_path), quantize=False)
+    assert np.array_equal(xf, images.reshape(5, 784))
+    assert np.array_equal(tloaders.quantize_2bit(xf), jloaders.quantize_2bit(xf))
+    with pytest.raises(FileNotFoundError):
+        tloaders.load_idx_labels(str(tmp_path / "missing"))
+    with pytest.raises(ValueError, match="magic"):
+        tloaders.load_idx_labels(str(tmp_path / "t10k-images-idx3-ubyte"))
+
+
+def test_csv_matrix_and_mitbih_labels_match_jax(tmp_path):
+    """save_csv_matrix -> read_csv_matrix round trip in the reference's
+    layout (a comma after every value) gives the JAX package's file and
+    matrix; the time-series and MIT-BIH label readers equal the JAX
+    package's on temporary files."""
+    from hhe_tpu.models import loaders as jloaders
+    from hhe_tpu.models import pocketnn as jpk
+    from hhe_tpu_torch.models import loaders as tloaders
+    from hhe_tpu_torch.models import pocketnn as tpk
+
+    mat = np.random.default_rng(4).integers(-508, 509, (7, 10))
+    tpk.save_csv_matrix(tmp_path / "t.csv", mat)
+    jpk.save_csv_matrix(tmp_path / "j.csv", mat)
+    assert (tmp_path / "t.csv").read_text() == (tmp_path / "j.csv").read_text()
+    back = tpk.read_csv_matrix(tmp_path / "t.csv")
+    assert back.dtype == np.int64 and np.array_equal(back, mat)
+    assert np.array_equal(back, jpk.read_csv_matrix(tmp_path / "t.csv"))
+    (tmp_path / "f.csv").write_text("1.0, 2,\n\n-3,4.0,\n")
+    assert np.array_equal(tloaders.load_time_series_csv(str(tmp_path / "f.csv")), [[1, 2], [-3, 4]])
+    assert np.array_equal(tloaders.load_spo2_recording(str(tmp_path / "f.csv")),
+                          jloaders.load_spo2_recording(str(tmp_path / "f.csv")))
+    lab = np.random.default_rng(5).integers(0, 2, 13245)
+    np.savetxt(tmp_path / "mitbih_bin_y_test.csv", lab, fmt="%d")
+    np.savetxt(tmp_path / "mitbih_balanced_bin_y_train.csv", lab[:9], fmt="%.1f")
+    got = tloaders.load_mitbih_labels("test", root=str(tmp_path))
+    assert got.dtype == np.int64 and np.array_equal(got, lab)
+    assert np.array_equal(got, jloaders.load_mitbih_labels("test", root=str(tmp_path)))
+    bal = tloaders.load_mitbih_labels("train", balanced=True, root=str(tmp_path))
+    assert np.array_equal(bal, lab[:9])
+    assert tloaders.MITBIH_ROOT.startswith(tloaders.REFERENCE_ROOT)
