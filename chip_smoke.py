@@ -33,6 +33,22 @@ Phases (any failure propagates and the exit code is nonzero):
    flatten, ct x ct, log-depth vec-sum) on B=64 samples at N=16384 with
    FC_LIMBS limbs, its hard parity check, the noise budgets after
    decompose+flatten and after FC+sum, the experiment report;
+   4b. the parties in this process over gRPC on localhost: a port ``CSP``
+   at N=16384 / 13 limbs and two ``Analyst``s (L=300 and L=128, host
+   keygen, weights in [-3, 3]) that encrypt their models and publish their
+   keys (~1.27 GB each) to it; a ``User`` submits B=64 records to each,
+   the CSP decomposes them on arrival and checkpoints them, and
+   ``evaluateModelFromFile`` (then, for L=300, ``evaluateModel`` with the
+   checkpoint split across repeated ``HHEDecomp`` entries) returns results
+   that must decrypt to x @ w exactly, with predictions (x @ w > 0); the
+   three secret keys must differ and both kernels must launch; per-party ms
+   and per-edge MB, the decompose wall, evaluation ms a ciphertext, the
+   key set's publish time, one result's noise budget, peak memory;
+   4c. the CLI: ``python -m hhe_tpu_torch.parties.cli`` csp, analyst and
+   user as three processes on the card at the CLI's defaults (N=16384, 13
+   limbs, --input-len 300, --rows 2) with surrogate CSVs; the analyst's
+   printed predictions must equal the plain model's, and both servers must
+   exit 0 on SIGINT;
    FashionMNIST: ``hhe_fmnist_1fc_inference`` (784 -> 10 + bias, seven
    blocks, the C class rows in one batched pass) on B=4 at FMNIST_LIMBS
    limbs, its hard mod-t parity, the report and the stage budgets;
@@ -95,12 +111,19 @@ FC_LIMBS = 13  # the 1FC path's data limbs at N=16384
 LARGE_KS_LIMBS = 17
 MITBIH_TEST_ROWS = 13245  # the reference's ECG test set
 ECG_FULL_BATCH = 512  # samples per decompose in the full ECG run
-ECG_FULL_CAP = 4096  # samples the full ECG run takes by default (--ecg-full-samples)
+# samples the full ECG run takes by default (--ecg-full-samples); 2048 keeps the
+# script near 10 minutes with the parties' phases
+ECG_FULL_CAP = 2048
 FMNIST_LIMBS = 13  # the production chain holds the FashionMNIST FC
 MNIST_B = 4  # images per 2FC batch, the JAX package's
 MNIST_LIMBS = 16  # the 2FC path's chain: fc1, rotate-reduce and square need ~70 bits
 # hidden rows per 2FC pass: 32 peaks at ~43 GiB, 64 runs out of the card's 80
 MNIST_ROW_CHUNK = 32
+# the parties' localhost ports, away from the tests' (50951-50982)
+PARTY_CSP = "localhost:50591"
+PARTY_ANALYSTS = ((FC_L, 32, "localhost:50592"), (128, 16, "localhost:50593"))  # L, x < hi
+CLI_ANALYST, CLI_CSP = "localhost:50594", "localhost:50595"
+PARTY_WAIT_S = 600  # the longest one party step may take
 
 
 def log(msg: str):
@@ -150,7 +173,7 @@ def phase_device():
 
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc {ntt_kernels.nvcc_path()}")
-    # the parties' wire (not ported yet) needs these on the card's machine
+    # the parties' wire (phases 4b and 4c) needs these on the card's machine
     for mod in ("grpc", "google.protobuf"):
         try:
             log(f"{mod} {importlib.import_module(mod).__version__}")
@@ -682,6 +705,250 @@ def phase_1fc():
     return stats, launches, rec.calls
 
 
+def phase_parties():
+    """The three parties in this process, over gRPC on localhost, at the
+    production parameters (N=16384, 13 limbs) on the card: the port's
+    ``CSP`` / ``CSPServer`` and, for L=300 (SpO2) and L=128 (ECG), an
+    ``Analyst`` (host keygen) that encrypts surrogate weights in [-3, 3],
+    serves, and publishes its keys and model to the CSP.  A ``User``
+    submits B records to each analyst (values below 32 and 16); the CSP
+    decomposes them on arrival and writes its checkpoint; then
+    ``evaluateModelFromFile`` and, for L=300, ``evaluateModel`` with the
+    checkpoint's ciphertexts in repeated ``HHEDecomp`` entries.  Gates: each
+    analyst's results equal x @ w exactly and its predictions (x @ w > 0);
+    the three secret keys differ; K1 and K2 launch."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.parties import rpc
+    from hhe_tpu_torch.parties.analyst import Analyst, AnalystServer
+    from hhe_tpu_torch.parties.csp import CSP, CSPServer
+    from hhe_tpu_torch.parties.gen import hhe_pb2 as pb
+    from hhe_tpu_torch.parties.user import User
+    from hhe_tpu_torch.utils import checks, metrics, serial
+
+    def params(seed):
+        return bfv.BFVParams(n=16384, data_limbs=13, seed=seed)
+
+    def csp_s():  # the CSP's own synchronised wall in decompose and evaluate
+        return csp.timer.phases.get("csp", 0.0)
+
+    def call(method, msg):
+        client = rpc.csp_client(PARTY_CSP)
+        try:
+            return timed(lambda: client.call(method, msg))[1]
+        finally:
+            client.close()
+
+    rng = np.random.default_rng(15)
+    stats = {"n": 16384, "limbs": 13, "batch": B, "analysts": {}}
+    servers, users, analysts = [], [], []
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.reset_peak_memory_stats()
+    ntt_kernels.reset_launches()
+    try:
+        with ShapeRecorder() as rec:
+            csp, stats["csp_setup_s"] = timed(lambda: CSP(params(2), workdir=tmp.name))
+            servers.append(CSPServer(csp, PARTY_CSP))
+            for i, (L, hi, addr) in enumerate(PARTY_ANALYSTS):
+                st = stats["analysts"][L] = {}
+                a, st["keygen_s"] = timed(lambda: Analyst(params(3 + i), input_len=L))
+                w = rng.integers(-3, 4, (L, 1))
+                _, st["encrypt_model_s"] = timed(lambda: a.encrypt_model(w))
+                srv = AnalystServer(a, addr)
+                servers.append(srv)
+                _, st["publish_s"] = timed(lambda: srv.publish_to_csp(PARTY_CSP))
+                st["publish_mb"] = a.ledger.edges["analyst-csp"]
+                analysts.append((L, hi, addr, a, srv, w))
+            keys = [t[3].sk for t in analysts] + [csp.sk]
+            for sk1, sk2 in itertools.combinations(keys, 2):
+                checks.are_same_he_sk(sk1, sk2)  # raises if two are equal
+
+            for i, (L, hi, addr, a, srv, w) in enumerate(analysts):
+                st = stats["analysts"][L]
+                x = rng.integers(0, hi, (B, L))
+                expect = x.astype(np.int64) @ w.reshape(-1)
+                user = User(params(5 + i), data=x)
+                users.append(user)
+                before = csp_s()
+                _, st["submit_s"] = timed(lambda: user.submit(addr, PARTY_CSP, f"p{L}"))
+                st["decompose_s"] = csp_s() - before
+                path = os.path.join(tmp.name, f"p{L}_{a.uuid}.bin")
+                st["checkpoint_mb"] = os.path.getsize(path) / 2**20
+
+                requests = [("evaluateModelFromFile", pb.DataFile(filename=os.path.basename(path)))]
+                if L == FC_L:  # the checkpoint's ciphertexts, one frame an entry
+                    with open(path, "rb") as f:
+                        cts = serial.load_ciphertext_vec(f.read(), "cpu")
+                    msg = pb.CiphertextBytes(analystID=a.uuid)
+                    for ct in cts:
+                        msg.HHEDecomp.append(serial.dump_ciphertext_vec([ct]))
+                    requests.append(("evaluateModel", msg))
+                for method, msg in requests:
+                    a.raw_results.clear()
+                    a.predictions.clear()
+                    srv.results_ready.clear()
+                    before = csp_s()
+                    wall = call(method, msg)
+                    if not srv.results_ready.wait(timeout=PARTY_WAIT_S):
+                        raise AssertionError(f"parties: no results for L={L} after {method}")
+                    if not (np.array_equal(a.raw_results, expect)
+                            and np.array_equal(a.predictions, (expect > 0).astype(int))):
+                        raise AssertionError(f"parties: L={L} {method} results differ from x @ w")
+                    st[f"{method}_wall_s"] = wall
+                    st[f"{method}_eval_ms_per_ct"] = 1e3 * (csp_s() - before) / B
+                # one result's noise budget, from the CSP's own evaluation
+                ct0 = csp.state(addr).decomposed[f"p{L}"][0]
+                res = csp.evaluate_model(addr, [ct0])[0]
+                st["result_noise_budget_bits"] = a.ctx.noise_budget(a.sk, res)
+        launches = dict(ntt_kernels.LAUNCHES)
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        everyone = [t[3] for t in analysts] + users + [csp]
+        timer, ledger = metrics.merge(timers=[p.timer for p in everyone],
+                                      ledgers=[p.ledger for p in everyone])
+        report = metrics.experiment_report(timer, ledger, accuracy=1.0)
+        log(metrics.format_experiment_report(report))
+        stats["computation_ms"] = report["computation_ms"]
+        stats["communication_mb"] = report["communication_mb"]
+    finally:
+        for srv in servers:
+            srv.stop()
+        tmp.cleanup()
+    log(f"parties: CSP + analysts L=300 / L=128 + users at N=16384 / 13 limbs, B={B}, over gRPC: "
+        f"results equal x @ w, keys differ, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the parties' path: {launches}")
+    return stats, launches, rec.calls
+
+
+class CliParty:
+    """One ``python -m hhe_tpu_torch.parties.cli`` process; its output lines
+    are collected on a thread."""
+
+    def __init__(self, *args):
+        import queue
+        import sys
+        import threading
+
+        self.name = args[0]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "hhe_tpu_torch.parties.cli", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        self.lines, self.seen = queue.Queue(), []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+
+    def wait_for(self, pattern, timeout=PARTY_WAIT_S):
+        """The first match of `pattern` in a line not yet searched."""
+        import queue
+
+        rx, end = re.compile(pattern), time.perf_counter() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, end - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(f"cli {self.name}: no {pattern!r} in {timeout} s; "
+                                     f"output: {self.output()[-4000:]}") from None
+            self.seen.append(line)
+            m = rx.search(line)
+            if m:
+                return m
+
+    def output(self) -> str:
+        """Every line the process has printed so far."""
+        while not self.lines.empty():
+            self.seen.append(self.lines.get())
+        return "".join(self.seen)
+
+    def stop(self):
+        """SIGINT, as Ctrl-C; the exit code (the process is killed if it
+        outlives a minute)."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def phase_cli():
+    """The CLI as three processes on the card at its defaults (N=16384,
+    13 limbs, --input-len 300, --rows 2), surrogate weights in [-3, 3] and
+    four records below 32 in temporary CSVs: csp, then analyst (keygen,
+    model, publish), then user (submit; the CSP decomposes and
+    checkpoints); then ``evaluateModelFromFile`` on the checkpoint, and the
+    analyst's printed predictions must equal the plain model's; both servers
+    must exit 0 on SIGINT.  Any nonzero exit or timeout fails."""
+    import sys
+
+    from hhe_tpu_torch.models import pocketnn
+    from hhe_tpu_torch.parties import rpc
+    from hhe_tpu_torch.parties.gen import hhe_pb2 as pb
+
+    rng = np.random.default_rng(22)  # predictions [1, 0]
+    w = rng.integers(-3, 4, (FC_L, 1))
+    x = rng.integers(0, 32, (4, FC_L))
+    expect = (x[:2].astype(np.int64) @ w.reshape(-1) > 0).astype(int).tolist()
+    stats, parties = {}, []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights, data = os.path.join(tmp, "weights.csv"), os.path.join(tmp, "c000101_data.txt")
+        pocketnn.save_csv_matrix(weights, w)
+        pocketnn.save_csv_matrix(data, x)
+        try:
+            parties.append(CliParty("csp", CLI_CSP, "--workdir", tmp))
+            parties[0].wait_for(r"\[CSP\] serving on")
+            stats["csp_up_s"] = time.perf_counter() - t0
+            analyst = CliParty("analyst", CLI_ANALYST, CLI_CSP, "--weights", weights,
+                               "--input-len", str(FC_L))
+            parties.append(analyst)
+            uuid = analyst.wait_for(r"\[Analyst\] uuid=(\S+)")[1]
+            analyst.wait_for(r"\[Analyst\] ready")
+            stats["analyst_ready_s"] = time.perf_counter() - t0
+            user = subprocess.run(
+                [sys.executable, "-m", "hhe_tpu_torch.parties.cli", "user", CLI_ANALYST, CLI_CSP,
+                 "--data", data, "--rows", "2"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                timeout=PARTY_WAIT_S)
+            log(user.stdout.rstrip())
+            if user.returncode:
+                raise AssertionError(f"cli user exited {user.returncode}: {user.stderr[-4000:]}")
+            stats["user_done_s"] = time.perf_counter() - t0
+            client = rpc.csp_client(CLI_CSP)
+            client.call("evaluateModelFromFile", pb.DataFile(filename=f"c000101_{uuid}.bin"))
+            client.close()
+            got = analyst.wait_for(r"predictions so far: \[([-\d, ]*)\]")[1]
+            stats["predictions_s"] = time.perf_counter() - t0
+            stats["predictions"] = [int(v) for v in got.split(",")]
+            if stats["predictions"] != expect:
+                raise AssertionError(f"cli predictions {stats['predictions']} != plain {expect}")
+            for p in reversed(parties):
+                rc = p.stop()
+                if rc != 0:
+                    raise AssertionError(f"cli {p.name} exited {rc} on SIGINT")
+        finally:
+            for p in parties:
+                if p.proc.poll() is None:
+                    p.proc.kill()
+                    p.proc.wait()
+                log("".join(f"  [{p.name} out] {ln}" for ln in p.output().splitlines(True)).rstrip())
+    stats["wall_s"] = time.perf_counter() - t0
+    log(f"cli: csp, analyst and user as three processes at N=16384 / 13 limbs: predictions "
+        f"{stats['predictions']} equal the plain model's; {stats}")
+    return stats
+
+
 def phase_ecg_full(stack, samples):
     """The full-dataset ECG run on the ECG phase's stack:
     ``hhe_ecg_full_inference`` with surrogate ecg_512 weights in
@@ -854,8 +1121,7 @@ def phase_mnist_2fc():
         lambda: debug_budgets(lambda: run(RunConfig(dry_run=False, debugging=True))))
     stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
     stats["noise_budget_after_2fc"] = budgets["2FC eval"]
-    stack.tc._ks_cache.clear()
-    stack.tc._pt_cache.clear()
+    stack.tc.clear_caches()
     free_device()
     ntt_kernels.reset_launches()
     with ShapeRecorder() as rec, PhaseTimer(wk, ("csp_decompose", "csp_eval_2fc")) as pt:
@@ -1124,6 +1390,10 @@ def main():
     free_device()
     fc, launches["1fc"], calls["1fc"] = phase_1fc()
     free_device()
+    parties, launches["parties"], calls["parties"] = phase_parties()
+    free_device()
+    cli = phase_cli()
+    free_device()
     fmnist, launches["fmnist_1fc"], calls["fmnist_1fc"] = phase_fmnist()
     free_device()
     mnist, launches["mnist_2fc"], calls["mnist_2fc"] = phase_mnist_2fc()
@@ -1137,7 +1407,8 @@ def main():
     rows = kernel_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
-                      "ecg_full": ecg_full, "1fc": fc, "fmnist_1fc": fmnist, "mnist_2fc": mnist,
+                      "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
+                      "fmnist_1fc": fmnist, "mnist_2fc": mnist,
                       "large_chain": chain, "rotation_32768": rot32k,
                       "large_keystream": large}), flush=True)
     print(smi, flush=True)

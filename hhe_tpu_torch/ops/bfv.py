@@ -7,7 +7,8 @@ of ``hhe_tpu.ops.bfv``.
 - Prime selection, the encoder map, the galois maps and the host keygen /
   encrypt / decrypt are the JAX package's, draw for draw from
   ``np.random.default_rng(params.seed)``, so the same ``BFVParams`` give the
-  same keys and ciphertexts in both packages.
+  same keys and ciphertexts in both packages (key-switch keys take their
+  algebra on the context's device, with the same residues).
 - ``Context(params, device=None)`` runs on CUDA; without a card it raises
   unless the caller passes ``device="cpu"``.
 """
@@ -167,10 +168,16 @@ class Context:
         self._build_encoder_map()
         self._eval_consts = None
         self._dec_consts = None
+        self._ks_factor = None
         self._dec_sk_cache: Dict[int, tuple] = {}
         self._level_bases: Dict[int, rns.RnsBase] = {}
 
         self.rng = np.random.default_rng(p.seed)
+
+    def synchronize(self):
+        """Wait for the context's device, so that a timed phase holds its work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """uint32 residues (numpy) -> int32 tensor on this context's device."""
@@ -260,38 +267,44 @@ class Context:
             pk0[i] = (q - (as_ + e_rns[i]) % q) % q
         return PublicKey(np.stack([pk0, a]).astype(np.uint32))
 
+    def _ks_factor_mont(self) -> torch.Tensor:
+        """P * unit_j mod m in Montgomery form, int64 [kd, k+1, 1]; zero on
+        the special prime itself (P * unit_j mod P == 0)."""
+        if self._ks_factor is None:
+            pq = self.base_qp.moduli
+            factor = np.zeros((self.k, len(pq), 1), np.uint32)
+            for j in range(self.k):
+                for i, m in enumerate(pq):
+                    v = (self.p_special % m) * int(self.unit_mod_qp[j, i]) % m
+                    factor[j, i, 0] = modular.to_mont_host(np.uint64(v), m)
+            self._ks_factor = torch.from_numpy(factor.astype(np.int64)).to(self.device)
+        return self._ks_factor
+
     def _keyswitch_gen(self, sk: SecretKey, target_rns_qp: np.ndarray) -> KSwitchKey:
         """KSK for target poly (u64 [k+1, N], coeff, mod q ∪ P):
-        key_j = (-(a_j s + e_j) + P * unit_j * target, a_j) over q ∪ P."""
+        key_j = (-(a_j s + e_j) + P * unit_j * target, a_j) over q ∪ P.
+
+        a and e are drawn on the host as the JAX package draws them; the
+        algebra runs in the NTT domain on the context's device (the key's
+        own domain): NTT(key_j) = NTT(target) P unit_j - (NTT(a_j) NTT(s) +
+        NTT(e_j)), the same residues as the JAX package's coefficient-domain
+        numpy products, with half its NTTs."""
         pq = self.base_qp.moduli
         kd = self.k
-        s_rns = self._small_to_rns(sk.s_small, pq)
         a = np.stack([self._sample_uniform(pq) for _ in range(kd)])  # [kd, k+1, N]
         e = np.stack(
             [self._small_to_rns(self._sample_cbd(), pq) for _ in range(kd)]
         )
-        k0 = np.zeros((kd, len(pq), self.n), np.uint64)
-        for i, m in enumerate(pq):
-            mm = np.uint64(m)
-            tb = ntt.build_host_tables(m, self.n)
-            fa = ntt.ntt_fwd_host(a[:, i], tb)
-            fs = ntt.ntt_fwd_host(s_rns[i], tb)
-            as_ = ntt.ntt_inv_host(fa * fs % mm, tb)
-            body = (mm - (as_ + e[:, i]) % mm) % mm
-            if i < kd:  # P*unit_j mod P == 0; only data limbs get payload
-                factor = (self.p_special % m) * self.unit_mod_qp[:, i] % m  # [kd]
-                body = (body + target_rns_qp[i][None, :] * factor[:, None]) % mm
-            k0[:, i] = body
-
-        def to_dev(x):
-            out = np.empty_like(x)
-            for i, m in enumerate(pq):
-                tb = ntt.build_host_tables(m, self.n)
-                f = ntt.ntt_fwd_host(x[:, i], tb)
-                out[:, i] = (f << np.uint64(32)) % np.uint64(m)
-            return self.to_device(out)
-
-        return KSwitchKey(to_dev(k0), to_dev(a))
+        tb = self.tb_qp
+        q, qi = tb.q, tb.qinv_neg
+        fs = ntt.ntt_fwd(self.to_device(self._small_to_rns(sk.s_small, pq)), tb)
+        ft = ntt.ntt_fwd(self.to_device(target_rns_qp), tb)
+        fa = ntt.ntt_fwd(self.to_device(a), tb)
+        fe = ntt.ntt_fwd(self.to_device(e), tb)
+        as_ = modular.mont_mul(fa, ntt.to_mont(fs, tb), q, qi)
+        payload = modular.mont_mul(ft[None], self._ks_factor_mont(), q, qi)
+        k0 = modular.sub_mod(payload, modular.add_mod(as_, fe, q), q)
+        return KSwitchKey(ntt.to_mont(k0, tb), ntt.to_mont(fa, tb))
 
     def keygen_relin(self, sk: SecretKey) -> KSwitchKey:
         """Relinearization key: target = s^2."""
@@ -336,7 +349,6 @@ class Context:
 
         dev = self.device
         pq_mods = self.base_qp.moduli
-        kp = len(pq_mods)
         kd = self.k
         n = self.n
         tb = self.tb_qp
@@ -355,14 +367,7 @@ class Context:
             targets.append(fs[..., src])
             labels.append(int(g))
 
-        # P * unit_j mod m, Montgomery form: [kd, k+1, 1]
-        factor = np.zeros((kd, kp, 1), np.uint32)
-        for j in range(kd):
-            for i, m in enumerate(pq_mods):
-                v = (self.p_special % m) * int(self.unit_mod_qp[j, i]) % m
-                factor[j, i, 0] = modular.to_mont_host(np.uint64(v), m)
-        factor = torch.from_numpy(factor.astype(np.int64)).to(dev)
-
+        factor = self._ks_factor_mont()
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed ^ 0x5EED)
         out_rk = None

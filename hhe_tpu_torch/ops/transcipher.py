@@ -109,6 +109,12 @@ class Transcipher:
         while len(cache) > maxsize:
             cache.popitem(last=False)
 
+    def clear_caches(self):
+        """Free the device round-material / keystream caches (the round
+        material is ~0.5 GB per block at production N)."""
+        self._pt_cache.clear()
+        self._ks_cache.clear()
+
     def _build_bsgs_keys(self, gks: Dict[int, KSwitchKey]):
         """Precompute the batched BSGS material.
 

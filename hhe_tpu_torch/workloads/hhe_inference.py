@@ -71,12 +71,6 @@ def _debug_noise(stack: "HHEStack", ct: Ciphertext, tag: str, run: Optional[RunC
           f"{stack.ctx.noise_budget(stack.sk, Ciphertext(first))} bits", flush=True)
 
 
-def _sync(ctx: Context):
-    """Wait for the context's device, so that a timed phase holds its work."""
-    if ctx.device.type == "cuda":
-        torch.cuda.synchronize(ctx.device)
-
-
 @dataclasses.dataclass
 class HHEStack:
     """Bundled parameter set + party keys for single-process simulations."""
@@ -105,7 +99,8 @@ def build_stack(
     ``device`` defaults to CUDA and raises without a card unless
     ``device="cpu"`` is passed.  ``device_keygen`` generates the evaluation
     keys (relin + galois) on the device with a ``torch.Generator`` — host
-    keygen of ~50 galois keys at N=16384 takes tens of minutes in numpy.
+    keygen draws every key's randomness in numpy, as the JAX package does
+    (the same keys, bit for bit), and is the slower of the two.
     ``config`` (``utils.config.Config``) supplies the HE parameters (unless
     ``params`` is given) and the BSGS layout."""
     use_bsgs, n1, n2 = True, transcipher.BSGS_N1, transcipher.BSGS_N2
@@ -246,7 +241,7 @@ def hhe_1fc_inference(
     with timer.phase("user"):
         sym = cipher.encrypt(samples)
         enc_key = stack.tc.encrypt_key(stack.pk, key)
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add("analyst-user", metrics.he_pk_size(stack.pk))
     ledger.add(
         "user-csp",
@@ -256,7 +251,7 @@ def hhe_1fc_inference(
     # Analyst: model encryption (transposed row -> one ct)
     with timer.phase("analyst"):
         weight_ct = helin.encrypt_weight(ctx, stack.pk, w[None, :])[0]
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add(
         "analyst-csp",
         metrics.he_key_size(stack.rk, stack.gks) + metrics.he_vec_size([weight_ct]),
@@ -268,7 +263,7 @@ def hhe_1fc_inference(
         _debug_noise(stack, data_ct, "decomposition+flatten", run)
         wct = Ciphertext(weight_ct.data[:, None] if data_ct.data.dim() == 4 else weight_ct.data)
         result = csp_eval_1fc(stack, data_ct, wct, do_sum=True)
-        _sync(ctx)
+        ctx.synchronize()
     _debug_noise(stack, result, "encrypted FC + vec_sum", run)
     ledger.add("analyst-csp", metrics.he_vec_size(_split_batch(result)))
 
@@ -609,11 +604,11 @@ def hhe_fmnist_1fc_inference(
         else:
             data_ct = _encrypt_samples(stack, samples)
             ledger.add("user-csp", metrics.he_vec_size(_split_batch(data_ct)))
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add("analyst-user", metrics.he_pk_size(stack.pk))
     with timer.phase("analyst"):
         w_cts = helin.encrypt_weight(ctx, stack.pk, w.T)  # one ct per class
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add(
         "analyst-csp",
         metrics.he_key_size(stack.rk, stack.gks) + metrics.he_vec_size(w_cts),
@@ -623,7 +618,7 @@ def hhe_fmnist_1fc_inference(
             data_ct = csp_decompose(stack, enc_key, sym)
             _debug_noise(stack, data_ct, "decomposition+flatten", run)
         logits_ct = csp_eval_fc_multi(stack, data_ct, w_cts, bias)
-        _sync(ctx)
+        ctx.synchronize()
     _debug_noise(stack, logits_ct, "fmnist 1fc eval", run)
     with timer.phase("analyst"):
         logits = decrypt_2fc_logits(stack, logits_ct)
@@ -697,14 +692,14 @@ def hhe_ecg_full_inference(
     with timer.phase("user"):
         sym = cipher.encrypt(x)
         enc_key = stack.tc.encrypt_key(stack.pk, key)
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add("analyst-user", metrics.he_pk_size(stack.pk))
     ledger.add(
         "user-csp", metrics.he_vec_size([enc_key]) + metrics.sym_enc_data_size(sym)
     )
     with timer.phase("analyst"):
         weight_ct = helin.encrypt_weight(ctx, stack.pk, w[None, :])[0]
-        _sync(ctx)
+        ctx.synchronize()
     ledger.add(
         "analyst-csp",
         metrics.he_key_size(stack.rk, stack.gks) + metrics.he_vec_size([weight_ct]),
@@ -727,7 +722,7 @@ def hhe_ecg_full_inference(
                 csp_eval_1fc(stack, Ciphertext(dd[:, e : e + eval_batch]), wct, do_sum=False)
                 for e in range(0, chunk.shape[0], eval_batch)
             ]
-            _sync(ctx)
+            ctx.synchronize()
         # result size metered per sample frame from the shapes
         result_mb += sum(metrics.he_vec_size_analytic(p) for p in prods)
         with timer.phase("analyst"):
