@@ -56,6 +56,14 @@ Phases (any failure propagates and the exit code is nonzero):
    MNIST_LIMBS limbs, MNIST_ROW_CHUNK rows a pass, its hard mod-t parity;
    an untimed warm-up with the stage budgets, then the timed run:
    inferences/s, the transcipher's and the 2FC pass's time, peak memory;
+   HCNN: ``he_mnist_conv_inference`` (conv 1->5 -> square -> conv 5->50 ->
+   square -> fc 800->10, the reference's pure-HE speed test) at N=16384 /
+   HCNN_LIMBS limbs and the 47-bit t on surrogate MNIST idx files: QAT on
+   the card, device keygen, the plaintexts, HCNN_IMAGES encrypted images;
+   the encrypted logits must equal the integer model's with noise budget
+   left; the Galois key count, the QAT, keygen and plaintext seconds, per
+   image the encryption, device evaluation and decrypt/decode seconds, the
+   budget after each stage, peak memory;
 5. large preset (a): the 58-limb N=65536 chain: encrypt, decrypt, device
    galois key, rotate_rows(-1), each with > 1000 bits of budget, and the
    tile kernels and the top passes launched; then ``default_context(32768)``
@@ -82,6 +90,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import importlib
 import io
 import itertools
@@ -119,6 +128,13 @@ MNIST_B = 4  # images per 2FC batch, the JAX package's
 MNIST_LIMBS = 16  # the 2FC path's chain: fc1, rotate-reduce and square need ~70 bits
 # hidden rows per 2FC pass: 32 peaks at ~43 GiB, 64 runs out of the card's 80
 MNIST_ROW_CHUNK = 32
+# the encrypted HCNN (he_mnist_conv_inference): the JAX package's own
+# parameters, N=16384 with 13 limbs and the 47-bit conv_plain_t; surrogate
+# MNIST idx files of HCNN_TRAIN + 200 images
+HCNN_LIMBS = 13
+HCNN_IMAGES = 2
+HCNN_TRAIN = 3000
+HCNN_EPOCHS = 2
 # the parties' localhost ports, away from the tests' (50951-50982)
 PARTY_CSP = "localhost:50591"
 PARTY_ANALYSTS = ((FC_L, 32, "localhost:50592"), (128, 16, "localhost:50593"))  # L, x < hi
@@ -797,8 +813,10 @@ def phase_parties():
                         raise AssertionError(f"parties: L={L} {method} results differ from x @ w")
                     st[f"{method}_wall_s"] = wall
                     st[f"{method}_eval_ms_per_ct"] = 1e3 * (csp_s() - before) / B
-                # one result's noise budget, from the CSP's own evaluation
-                ct0 = csp.state(addr).decomposed[f"p{L}"][0]
+                # one result's noise budget, from the CSP's own evaluation of
+                # the first record of its checkpoint (the batch's only copy)
+                with open(path, "rb") as f:
+                    ct0 = serial.load_ciphertext_vec(f.read(), csp.ctx.device)[0]
                 res = csp.evaluate_model(addr, [ct0])[0]
                 st["result_noise_budget_bits"] = a.ctx.noise_budget(a.sk, res)
         launches = dict(ntt_kernels.LAUNCHES)
@@ -1141,6 +1159,65 @@ def phase_mnist_2fc():
     return stats, launches, rec.calls
 
 
+def write_mnist_idx(root, images, labels):
+    """The MNIST test split's two idx files, as ``loaders.load_mnist_test``
+    reads them."""
+    import struct
+
+    with open(os.path.join(root, "t10k-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">IIII", 2051, len(images), 28, 28))
+        f.write(np.asarray(images, np.uint8).tobytes())
+    with open(os.path.join(root, "t10k-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">II", 2049, len(labels)) + np.asarray(labels, np.uint8).tobytes())
+
+
+def phase_he_conv():
+    """The encrypted HCNN: ``he_mnist_conv_inference`` at the JAX package's
+    parameters (N=16384, HCNN_LIMBS limbs, the 47-bit ``conv_plain_t``) on
+    surrogate MNIST idx files (HCNN_TRAIN + 200 numpy-seeded images in
+    0-255, labels 0-9) in a temporary directory: QAT of the conv(1->5) ->
+    square -> conv(5->50) -> square -> fc(800->10) model on the card
+    (HCNN_EPOCHS epochs), device keygen, the conv and FC plaintexts, then
+    HCNN_IMAGES encrypted images.  Gates: the encrypted logits equal the
+    integer model's (the workload raises otherwise), noise budget left after
+    the FC, K1 and K2 launched.  Records the Galois key count, the QAT,
+    keygen and plaintext seconds, per image the host encryption, device
+    evaluation and decrypt/decode seconds, the seconds in each heconv
+    function, the budget after each stage and the peak memory."""
+    import torch
+
+    from hhe_tpu_torch.ops import heconv, ntt_kernels
+    from hhe_tpu_torch.workloads import he_conv
+
+    rng = np.random.default_rng(16)
+    total = HCNN_TRAIN + 200
+    stages = ("conv_plaintexts", "fc_plaintexts", "he_conv2d", "he_square", "he_fc_from_conv")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_mnist_idx(tmp, rng.integers(0, 256, (total, 784)), rng.integers(0, 10, total))
+        ntt_kernels.reset_launches()
+        with ShapeRecorder() as rec, PhaseTimer(heconv, stages) as pt:
+            rep, wall = timed(lambda: he_conv.he_mnist_conv_inference(
+                n_images=HCNN_IMAGES, train_subset=HCNN_TRAIN, epochs=HCNN_EPOCHS, n=16384,
+                data_limbs=HCNN_LIMBS, mnist_root=tmp))
+        launches = dict(ntt_kernels.LAUNCHES)
+    stats = {"limbs": HCNN_LIMBS, "t_bits": he_conv.conv_plain_t(16384).bit_length(),
+             "wall_s": wall, **dataclasses.asdict(rep),
+             # synchronised seconds in each heconv function, summed over the run
+             # (both convs, both squares, every image)
+             "heconv_s": pt.seconds,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"he_conv: HCNN on {HCNN_IMAGES} encrypted images at N=16384 / {HCNN_LIMBS} limbs, "
+        f"{stats['t_bits']}-bit t: logits equal the integer model's, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    if not (rep.he_matches_int and rep.noise_left > 0):
+        raise AssertionError(f"HCNN: parity {rep.he_matches_int}, {rep.noise_left} bits left")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the HCNN path: {launches}")
+    return stats, launches, rec.calls
+
+
 def phase_large_chain():
     """Large preset, part (a): the full 58-limb chain at N = 65536 (the
     counterpart of tests/test_large_preset.py::test_full_58_limb_chain_keygen_rotation):
@@ -1398,6 +1475,8 @@ def main():
     free_device()
     mnist, launches["mnist_2fc"], calls["mnist_2fc"] = phase_mnist_2fc()
     free_device()
+    hcnn, launches["he_conv"], calls["he_conv"] = phase_he_conv()
+    free_device()
     chain, launches["large_chain"], calls["large_chain"] = phase_large_chain()
     free_device()
     rot32k, launches["rotation_32768"], calls["rotation_32768"] = phase_rotation_32768()
@@ -1408,7 +1487,7 @@ def main():
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
                       "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
-                      "fmnist_1fc": fmnist, "mnist_2fc": mnist,
+                      "fmnist_1fc": fmnist, "mnist_2fc": mnist, "he_conv": hcnn,
                       "large_chain": chain, "rotation_32768": rot32k,
                       "large_keystream": large}), flush=True)
     print(smi, flush=True)

@@ -435,17 +435,23 @@ class Context:
 
     def scale_plain(self, pt: Plaintext) -> np.ndarray:
         """round(Q * m / t) in RNS: u64 [k, N]."""
+        return self._scale(pt.data)
+
+    def _scale(self, polys) -> np.ndarray:
+        """round(Q * m / t) in RNS for plaintext polys [..., N] mod t:
+        u64 [..., k, N]; exact Python integers when t >= 2^32, where
+        (Q mod t) * m outgrows uint64."""
         if self.t >= (1 << 32):
-            m = np.asarray(pt.data, object)
+            m = np.asarray(polys, object)
             prod = int(self.q_mod_t) * m
             fix = (prod + (self.t + 1) // 2) // self.t
         else:
-            m = np.asarray(pt.data, np.uint64)
+            m = np.asarray(polys, np.uint64)
             prod = (self.q_mod_t * m).astype(np.uint64)
             fix = (prod + np.uint64((self.t + 1) // 2)) // np.uint64(self.t)
-        out = np.empty((self.k, self.n), np.uint64)
+        out = np.empty(m.shape[:-1] + (self.k, self.n), np.uint64)
         for i, q in enumerate(self.q_moduli):
-            out[i] = ((self.delta_mod_q[i] * (m % q) + fix) % q).astype(np.uint64)
+            out[..., i, :] = ((self.delta_mod_q[i] * (m % q) + fix) % q).astype(np.uint64)
         return out
 
     def encrypt(self, pk: PublicKey, pt: Plaintext) -> Ciphertext:
@@ -500,16 +506,20 @@ class Context:
         then the t/Q scale-and-round on the device: with
         u_i = [x_i (Q/q_i)^{-1}]_{q_i},
         m = [sum_i floor(t u_i / q_i) + round(sum_i (t u_i mod q_i)/q_i)]_t.
-        t * u_i < 2^62 is exact in int64, so quotient and remainder come from
-        one integer division; the quotients are summed in int64 (no u32 wrap
-        for any k * t) and the fractions in float64 (error k * 2^-52 against
-        the >= 1/4 rounding margin of a ciphertext with noise budget left).
-        Equal to ``decrypt`` + ``decode`` per sample."""
+        Quotient and remainder of t u_i by q_i are exact in int64 for any t
+        below 2^55: t is split as t_hi 2^24 + t_lo, so that every product
+        stays below 2^63 (t u_i itself outgrows int64 from t = 2^32 on).
+        The quotients are summed in int64 (no u32 wrap for any k * t) and the
+        fractions in float64 (error k * 2^-52 against the >= 1/4 rounding
+        margin of a ciphertext with noise budget left).  Equal to
+        ``decrypt`` + ``decode`` per sample."""
         cd = ct.data
         if cd.ndim != 4 or cd.shape[0] not in (2, 3):
             raise ValueError(f"decrypt_batch needs [2|3, B, k, N], got {tuple(cd.shape)}")
         if cd.shape[2] != self.k:
             raise ValueError("decrypt_batch supports full-level ciphertexts only")
+        if self.t >= 1 << 55:
+            raise ValueError(f"decrypt_batch needs t < 2^55, got a {self.t.bit_length()}-bit t")
         if self._dec_consts is None:
             dev = self.device
             wm = [(int(w) << 32) % int(qm) for w, qm in zip(self.base_q.inv, self.q_moduli)]
@@ -538,10 +548,16 @@ class Context:
             f2 = ntt.ntt_fwd(cd[2], self.tb_q)
             g = modular.add_mod(g, modular.mont_mul(f2, s2_nm, q, qi), q)
         x = modular.add_mod(cd[0], ntt.ntt_inv(g, self.tb_q), q)  # [B, k, N]
-        tu = modular.mont_mul(x, wm, q, qi).to(I64) * self.t
-        quot = torch.div(tu, q, rounding_mode="floor")
-        r = tu - quot * q
-        int_sum = quot.sum(dim=-2)
+        u = modular.mont_mul(x, wm, q, qi).to(I64)
+        # t u = 2^24 (t_hi u) + t_lo u = 2^24 (qa q + ra) + t_lo u, and
+        # 2^24 ra + t_lo u = qb q + r: so floor(t u / q) = 2^24 qa + qb
+        t_hi, t_lo = self.t >> 24, self.t & 0xFFFFFF
+        a = u * t_hi
+        qa = torch.div(a, q, rounding_mode="floor")
+        b = ((a - qa * q) << 24) + u * t_lo
+        qb = torch.div(b, q, rounding_mode="floor")
+        r = b - qb * q
+        int_sum = ((qa << 24) + qb).sum(dim=-2)
         frac_sum = (r.to(torch.float64) / qf).sum(dim=-2)
         m = (int_sum + torch.floor(frac_sum + 0.5).to(I64)) % self.t
         return m.cpu().numpy().astype(np.uint64)  # [B, N] mod t
@@ -625,14 +641,9 @@ class Context:
         return self.to_device(self._ntt_mont_host(polys, self.base_qp.moduli))
 
     def plain_for_add_batch(self, polys: np.ndarray) -> torch.Tensor:
-        """[..., N] plaintext polys mod t -> [..., k, N] scaled round(Q m / t)."""
-        m = np.asarray(polys, np.uint64)
-        prod = (self.q_mod_t * m).astype(np.uint64)
-        fix = (prod + np.uint64((self.t + 1) // 2)) // np.uint64(self.t)
-        out = np.empty(m.shape[:-1] + (self.k, self.n), np.uint64)
-        for i, q in enumerate(self.q_moduli):
-            out[..., i, :] = (self.delta_mod_q[i] * (m % q) + fix) % q
-        return self.to_device(out)
+        """[..., N] plaintext polys mod t -> [..., k, N] scaled round(Q m / t)
+        (exact for t >= 2^32, where the JAX package's uint64 product wraps)."""
+        return self.to_device(self._scale(polys))
 
 
 def _popcount20(v: torch.Tensor) -> torch.Tensor:

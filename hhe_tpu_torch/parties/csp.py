@@ -49,11 +49,19 @@ class AnalystState:
     tc: Optional[transcipher.Transcipher] = None
     weight_cts: Optional[List[bfv.Ciphertext]] = None
     enc_key: Optional[bfv.Ciphertext] = None
-    decomposed: Dict[str, List[bfv.Ciphertext]] = dataclasses.field(default_factory=dict)
     # submission length, recorded at addEncryptedData time and used by the
     # evaluate paths (the reference hard-codes 300 at CSPRPC.cpp:196 — a
     # deficiency deliberately not replicated)
     input_len: Optional[int] = None
+
+
+def check_name(what: str, value: str) -> str:
+    """A patient id or analyst UUID from the wire, which becomes part of a
+    checkpoint file name in the CSP's workdir: empty, path separators, NUL
+    and ``..`` raise ``ValueError`` (DATA_LOSS on the wire)."""
+    if not value or any(bad in value for bad in ("/", "\\", "\0", "..")):
+        raise ValueError(f"{what} {value!r} cannot name a file in the workdir")
+    return value
 
 
 class CSP:
@@ -94,11 +102,12 @@ class CSP:
     # ------------------------------------------------------------------
 
     def add_public_keys(self, analyst_id: str, msg: pb.PublicKeySetMsg):
+        uuid = check_name("analystUUID", msg.analystUUID)
         st = self.state(analyst_id)
         dev = self.ctx.device
         with self.lock:
             st.address = analyst_id
-            st.uuid = msg.analystUUID
+            st.uuid = uuid
             st.pk = serial.load_public_key(msg.pk.data)
             st.rk = serial.load_kswitch(msg.rk.data, dev)
             gks = serial.load_galois_keys(msg.gk.data, dev)
@@ -122,10 +131,14 @@ class CSP:
     def add_encrypted_data(
         self, analyst_id: str, records: np.ndarray, patient_id: str
     ) -> str:
-        """Store + synchronously decompose + checkpoint to file (reference
+        """Synchronously decompose + checkpoint to file (reference
         CSPRPC.cpp:162-222; file writer CSP.cpp:495-517).  Returns the
-        decomposition file path."""
+        decomposition file path.  The file is the batch's only copy: the
+        JAX package also keeps the batch in device memory, which nothing
+        reads and nothing frees."""
+        check_name("patientID", patient_id)
         st = self.state(analyst_id)
+        check_name("analystUUID", st.uuid)
         input_len = records.shape[1]
         self._log(f"decomposing {records.shape[0]} records of length {input_len}")
         with self.device_lock, self.timer.phase("csp"):
@@ -136,7 +149,6 @@ class CSP:
         with open(fname, "wb") as f:
             f.write(serial.dump_ciphertext_vec(cts))
         with self.lock:
-            st.decomposed[patient_id] = cts
             st.input_len = input_len
         return fname
 
@@ -262,7 +274,7 @@ class CSPServer:
         from '<patientID>_<analystUUID>.bin' (reference CSPRPC.cpp:278-310)."""
         fname = request.filename
         base = os.path.basename(fname)
-        uuid = base[base.index("_") + 1 :].removesuffix(".bin")
+        uuid = base[base.rindex("_") + 1 :].removesuffix(".bin")
         analyst_id = self.csp.uuid_to_id[uuid]
         with open(os.path.join(self.csp.workdir, base), "rb") as f:
             cts = serial.load_ciphertext_vec(f.read(), self.csp.ctx.device)

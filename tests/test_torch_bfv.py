@@ -201,6 +201,48 @@ def test_decrypt_batch_large_t_does_not_wrap():
         assert np.array_equal(m[i], tc.decrypt(sk, c).data)
 
 
+@pytest.fixture(scope="module")
+def t47():
+    """The HCNN's 47-bit plaintext modulus at N=2048 with 13 limbs: a
+    context, its keys, and two fresh ciphertexts of values across [0, t)."""
+    from hhe_tpu_torch.workloads.he_conv import conv_plain_t
+
+    tc = tbfv.Context(tbfv.BFVParams(n=2048, t=conv_plain_t(2048), data_limbs=13, seed=5),
+                      device="cpu")
+    assert tc.t >= 1 << 46
+    sk = tc.keygen_secret()
+    pk = tc.keygen_public(sk)
+    rng = np.random.default_rng(6)
+    vals = [rng.integers(0, tc.t, tc.n, dtype=np.int64) for _ in range(2)]
+    return tc, sk, [tc.encrypt(pk, tc.encode(v)) for v in vals], vals
+
+
+def test_decrypt_batch_exact_at_47_bit_t(t47):
+    """t u_i outgrows int64 from t = 2^32 on: decrypt_batch splits t and
+    equals the exact host decrypt per sample, also for a size-3 product."""
+    tc, sk, cts, vals = t47
+    m = tc.decrypt_batch(sk, tbfv.Ciphertext(torch.stack([c.data for c in cts], 1)))
+    for i, c in enumerate(cts):
+        assert np.array_equal(m[i], tc.decrypt(sk, c).data)
+        assert np.array_equal(tc.decode_batch(m)[i], vals[i])
+    prod = tev.multiply(tc, *(tbfv.Ciphertext(c.data[:, None]) for c in cts))
+    got = tc.decrypt_batch(sk, prod)[0]
+    assert np.array_equal(got, tc.decrypt(sk, tbfv.Ciphertext(prod.data[:, 0])).data)
+
+
+def test_plain_for_add_batch_exact_at_47_bit_t(t47):
+    """(Q mod t) * m wraps uint64 for t >= 2^32: plain_for_add_batch takes
+    scale_plain's exact path and equals it row by row, and a ciphertext
+    plus that plaintext decrypts to the sum."""
+    tc, sk, cts, vals = t47
+    polys = tc.encode_batch(np.stack(vals))
+    got = tc.plain_for_add_batch(polys)
+    for i in range(len(vals)):
+        assert np.array_equal(convert.to_numpy(got[i]), tc.scale_plain(tbfv.Plaintext(polys[i])))
+    summed = tev.add_plain(tc, cts[0], got[1])
+    assert np.array_equal(tc.decode(tc.decrypt(sk, summed)), (vals[0] + vals[1]) % tc.t)
+
+
 def test_device_keygen_decrypts():
     """Relin + galois keys from the torch generator decrypt correctly after
     a rotation and a relinearized square."""

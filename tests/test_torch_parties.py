@@ -14,6 +14,7 @@ One port CSP and two port analysts (input lengths 300 and 128) are started
 once at module scope, as in ``test_parties.py``.  Ports 50971-50975 are this
 file's alone."""
 
+import dataclasses
 import sys
 import threading
 
@@ -304,6 +305,91 @@ def test_concurrent_requests_match_serial_results(env):
         sys.setswitchinterval(prev)
     want = [int(x[0].astype(np.int64) @ w.reshape(-1)) for x in xs]
     assert sorted(analyst.raw_results) == sorted(want * 2)
+
+
+def _state_tensors(obj):
+    """Every tensor reachable from obj through dataclass fields, dicts,
+    lists and tuples (key and ciphertext tuples included), except the
+    transcipher's (its round-material and keystream caches are bounded) and
+    the last user's key ciphertext (one, replaced by each submission)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _state_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _state_tensors(v)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            if f.name not in ("tc", "enc_key"):
+                yield from _state_tensors(getattr(obj, f.name))
+
+
+def _submit_and_evaluate(env, x, patient_id):
+    """User submits x to analyst 1 under patient_id, then
+    evaluateModelFromFile on its checkpoint; returns the analyst's results."""
+    analyst, aserver = env.analysts[1], env.aservers[1]
+    analyst.raw_results.clear()
+    analyst.predictions.clear()
+    aserver.results_ready.clear()
+    User(PARAMS, data=x, device=CPU).submit(ANALYST_ADDRS[1], CSP_ADDR, patient_id)
+    client = rpc.csp_client(CSP_ADDR)
+    client.call("evaluateModelFromFile",
+                pb.DataFile(filename=f"{patient_id}_{analyst.uuid}.bin"))
+    client.close()
+    assert aserver.results_ready.wait(timeout=300)
+    return np.asarray(analyst.raw_results)
+
+
+def _state_bytes(st) -> int:
+    """Bytes of the distinct storages behind the state's tensors."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _state_tensors(st)}
+    return sum(storages.values())
+
+
+def test_submission_keeps_no_device_copy(env):
+    """The decomposed batch's only copy is its checkpoint file: after a
+    submission the CSP's state for the analyst holds as many tensor bytes
+    as before, and evaluateModelFromFile still returns x @ w exactly."""
+    st = env.csp.state(ANALYST_ADDRS[1])
+    before = _state_bytes(st)
+    x = np.random.default_rng(14).integers(0, 32, (2, LENS[1]))
+    got = _submit_and_evaluate(env, x, "f10")
+    assert _state_bytes(st) == before
+    assert (env.tmp_path / f"f10_{env.analysts[1].uuid}.bin").exists()
+    assert np.array_equal(got, x.astype(np.int64) @ env.ws[1].reshape(-1))
+
+
+def test_patient_id_with_underscore_round_trips(env):
+    """The UUID is read after the checkpoint name's last '_', so a patient
+    id that holds '_' reads back."""
+    x = np.random.default_rng(15).integers(0, 32, (1, LENS[1]))
+    got = _submit_and_evaluate(env, x, "c000_101")
+    assert np.array_equal(got, x.astype(np.int64) @ env.ws[1].reshape(-1))
+
+
+@pytest.mark.parametrize("name", ["../f11", "f11/x", "f11\0x", "..\\f11", ""])
+def test_unsafe_wire_names_get_data_loss(env, name):
+    """A patientID or analystUUID that could leave the workdir (or name no
+    file) gets DATA_LOSS, and nothing is written outside the workdir."""
+    outside = set(env.tmp_path.parent.rglob("*"))
+    x = np.random.default_rng(16).integers(0, 32, (1, LENS[1]))
+    with pytest.raises(grpc.RpcError) as ei:
+        User(PARAMS, data=x, device=CPU).submit(ANALYST_ADDRS[1], CSP_ADDR, name)
+    assert ei.value.code() == grpc.StatusCode.DATA_LOSS
+    keys = env.analysts[1].keys_msg()
+    keys.analystUUID = name
+    client = rpc.csp_client(CSP_ADDR)
+    try:
+        with pytest.raises(grpc.RpcError) as ei:
+            client.call("addPublicKeys", keys, metadata=(("analystid", "f11-analyst"),))
+        assert ei.value.code() == grpc.StatusCode.DATA_LOSS
+    finally:
+        client.close()
+    assert "f11-analyst" not in env.csp.analysts
+    assert set(env.tmp_path.parent.rglob("*")) == outside
 
 
 def test_jax_analyst_and_user_against_port_csp(env, jax_analyst):
