@@ -64,6 +64,21 @@ Phases (any failure propagates and the exit code is nonzero):
    left; the Galois key count, the QAT, keygen and plaintext seconds, per
    image the encryption, device evaluation and decrypt/decode seconds, the
    budget after each stage, peak memory;
+   training: integer DFA training at the reference's full widths on
+   numpy-seeded surrogates, ``train_mnist_dfa`` 784-100-50-10 (DFA_TRAIN
+   images, one epoch), ``train_spo2_square`` 300-128-1 and
+   ``train_spo2_one_layer`` 300-1 (SPO2_TRAIN rows, SPO2_EPOCHS epochs),
+   each equal to a CPU run of the same call bit for bit (history, final and
+   epoch-best parameters, checkpoint bytes), and ``int32_matmul`` on
+   wrapping int32 operands at the DFA step's shapes equal to the int64
+   product; ms a step and a product;
+   accuracy parity: ``accuracy_parity_report`` from a temporary reference
+   tree of surrogates (PARITY_PATIENTS SIESTA-layout recordings, the SpO2
+   1FC and MNIST 2FC weight CSVs, PARITY_IMAGES MNIST t10k images): the
+   float SpO2 and MNIST baselines, both integer accuracies, and
+   PARITY_SAMPLES encrypted SpO2 samples at N=1024 / 13 limbs whose parity
+   check must hold; the float SpO2 weights within FLOAT_SPO2_TOL of a CPU
+   run, with the same predictions; the seconds of each part;
 5. large preset (a): the 58-limb N=65536 chain: encrypt, decrypt, device
    galois key, rotate_rows(-1), each with > 1000 bits of budget, and the
    tile kernels and the top passes launched; then ``default_context(32768)``
@@ -135,6 +150,18 @@ HCNN_LIMBS = 13
 HCNN_IMAGES = 2
 HCNN_TRAIN = 3000
 HCNN_EPOCHS = 2
+# integer DFA training: MNIST-shaped images (784 pixels 0-255, labels 0-9)
+# for train_mnist_dfa at 784-100-50-10, one epoch of mini-batch 20; SIESTA-
+# shaped rows (300 values 0-31) for the two SpO2 trainers, two epochs of 4
+DFA_TRAIN, DFA_TEST = 10_000, 2_000
+SPO2_TRAIN, SPO2_TEST, SPO2_EPOCHS = 2_000, 500, 2
+# the accuracy report's surrogate reference tree: SIESTA-layout recordings
+# (patients x rows of 300), MNIST t10k idx files (the float MNIST split keeps
+# the last 2,000 for test); two encrypted samples at N=1024 / 13 limbs
+PARITY_PATIENTS, PARITY_ROWS, PARITY_IMAGES, PARITY_SAMPLES = 40, 50, 10_000, 2
+# the float SpO2 weights on the card against a CPU run: cuBLAS adds in
+# another order than the CPU (2.4e-7 apart after 400 steps on an H100)
+FLOAT_SPO2_TOL = 1e-5
 # the parties' localhost ports, away from the tests' (50951-50982)
 PARTY_CSP = "localhost:50591"
 PARTY_ANALYSTS = ((FC_L, 32, "localhost:50592"), (128, 16, "localhost:50593"))  # L, x < hi
@@ -1430,6 +1457,199 @@ def phase_profile(tc, enc_key, block_ms, tag):
     return out
 
 
+def same_training(card, cpu, what):
+    """Two ``TrainResult``s equal bit for bit: history, best accuracy, and
+    every tensor of the final and the epoch-best parameters."""
+    import torch
+
+    if card.history != cpu.history or card.best_test_acc != cpu.best_test_acc:
+        raise AssertionError(f"{what}: card history {card.history} != CPU {cpu.history}")
+    for tag, a, b in (("final", card.model, cpu.model), ("best", card.best_params, cpu.best_params)):
+        for li, (p, q) in enumerate(zip(a.params, b.params)):
+            for field, u, v in zip(p._fields, p, q):
+                if (u is None) != (v is None) or (u is not None and not torch.equal(u.cpu(), v)):
+                    raise AssertionError(f"{what}: {tag} layer {li} {field} differs from the CPU's")
+
+
+def phase_training():
+    """Integer DFA training (``workloads/training``) on the card at the
+    reference's full widths, on numpy-seeded surrogates: ``train_mnist_dfa``
+    at 784-100-50-10 (DFA_TRAIN images, one epoch, mini-batch 20, lr_inv
+    1000), ``train_spo2_square`` (300 -> 128 tanh -> 1 square) and
+    ``train_spo2_one_layer`` (300 -> 1) for SPO2_EPOCHS epochs with their
+    epoch-best CSV checkpoints.  Gates: each run's history, best accuracy,
+    final and epoch-best parameters and checkpoint bytes equal a CPU run of
+    the same call (``device="cpu"``) bit for bit; ``int32_matmul`` on full-
+    range operands that wrap, at the DFA step's three shapes, equals the
+    int64 product wrapped.  Records the wall of each run on the card and the
+    CPU, ms per training step (a loop of ``dfa_train_step`` on one batch,
+    CUDA events) and steps/s, ms per ``int32_matmul``, the phase's wall and
+    peak memory."""
+    import torch
+
+    from hhe_tpu_torch.models import pocketnn as pk
+    from hhe_tpu_torch.workloads import training
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(18)
+    n = DFA_TRAIN + DFA_TEST
+    img, lab = rng.integers(0, 256, (n, 784)), rng.integers(0, 10, n)
+    n = SPO2_TRAIN + SPO2_TEST
+    rows = rng.integers(0, 32, (n, 300))
+    score = rows @ rng.integers(-3, 4, 300)
+    pos = (score > np.median(score)).astype(np.int64)  # learnable labels, half positive
+    runs = {  # name: (trainer, arguments, keywords, checkpoint files)
+        "mnist_dfa": (training.train_mnist_dfa,
+                      (img[:DFA_TRAIN], lab[:DFA_TRAIN], img[DFA_TRAIN:], lab[DFA_TRAIN:]),
+                      dict(epochs=1), (), 20),
+        "spo2_square": (training.train_spo2_square,
+                        (rows[:SPO2_TRAIN], pos[:SPO2_TRAIN], rows[SPO2_TRAIN:], pos[SPO2_TRAIN:]),
+                        dict(epochs=SPO2_EPOCHS), ("w.fc1.csv", "w.fc2.csv"), 4),
+        "spo2_one_layer": (training.train_spo2_one_layer,
+                           (rows[:SPO2_TRAIN], pos[:SPO2_TRAIN], rows[SPO2_TRAIN:], pos[SPO2_TRAIN:]),
+                           dict(epochs=SPO2_EPOCHS), ("w.csv",), 4),
+    }
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (fn, args, kw, files, mb) in runs.items():
+            out, wall = {}, {}
+            for dev in ("cuda", "cpu"):
+                if files:
+                    os.makedirs(os.path.join(tmp, dev, name))
+                    kw["save_best_path"] = os.path.join(
+                        tmp, dev, name, "w.csv" if files == ("w.csv",) else "w")
+                out[dev], wall[dev] = timed(lambda: fn(*args, **kw, device=dev))
+            same_training(out["cuda"], out["cpu"], name)
+            for f in files:
+                card, cpu = (open(os.path.join(tmp, d, name, f), "rb").read() for d in ("cuda", "cpu"))
+                if card != cpu:
+                    raise AssertionError(f"{name}: checkpoint {f} differs from the CPU's")
+            res = out["cuda"]
+            x = torch.as_tensor(args[0][:mb], dtype=torch.int32, device="cuda")
+            y = torch.zeros((mb, res.specs[-1].out_dim), dtype=torch.int32, device="cuda")
+            step_ms = cuda_ms(lambda: pk.dfa_train_step(res.model, res.specs, x, y, 1000), 50)
+            steps = kw["epochs"] * (len(args[0]) // mb)
+            stats[name] = {
+                "widths": [res.specs[0].in_dim] + [s.out_dim for s in res.specs],
+                "epochs": kw["epochs"], "mini_batch": mb, "steps": steps,
+                "card_s": wall["cuda"], "cpu_s": wall["cpu"],
+                "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+                "history": res.history, "best_test_acc": res.best_test_acc,
+                "nonzero_weights": [int((p.weight != 0).sum()) for p in res.model.params],
+            }
+            log(f"training {name}: card equals CPU bit for bit ({steps} steps, "
+                f"{wall['cuda']:.2f} s on the card, {wall['cpu']:.2f} s on the CPU), "
+                f"{step_ms:.3f} ms a step")
+    mm = {}
+    for m, k, nn in ((20, 784, 100), (784, 20, 100), (1, 20, 100)):
+        a = rng.integers(-(2**31) + 1, 2**31, (m, k))
+        b = rng.integers(-(2**31) + 1, 2**31, (k, nn))
+        want = torch.as_tensor((a @ b).astype(np.int32))  # int64 wraps mod 2^64: exact mod 2^32
+        at, bt = (torch.as_tensor(v.astype(np.int32), device="cuda") for v in (a, b))
+        if not torch.equal(pk.int32_matmul(at, bt).cpu(), want):
+            raise AssertionError(f"int32_matmul [{m}, {k}] x [{k}, {nn}] differs from int64")
+        mm[f"{m}x{k}x{nn}"] = cuda_ms(lambda: pk.int32_matmul(at, bt), 50)
+    stats["int32_matmul_ms"] = mm
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["wall_s"] = time.perf_counter() - t_phase
+    log(f"training: int32_matmul equals the wrapped int64 product, ms a call {mm}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    return stats
+
+
+def write_reference_tree(root, rng):
+    """Surrogates of the reference files the accuracy report reads, at their
+    published shapes: PARITY_PATIENTS SIESTA-layout recordings of
+    PARITY_ROWS rows of 300 values 0-31 with 0/1 labels, the SpO2 1FC weights
+    (300 x 1 in [-3, 3]), the MNIST 2FC weights (784 x 128 and 128 x 10 in
+    [-2, 1]) and PARITY_IMAGES MNIST t10k images."""
+    from hhe_tpu_torch.models import pocketnn
+    from hhe_tpu_torch.workloads import float_baseline as fb
+
+    siesta = os.path.join(root, "data", "Harpocrates_recordingwise_SIESTA_4percent")
+    mnist = os.path.join(root, "data", "mnist", "MNIST", "raw")
+    for d in (siesta, mnist, os.path.dirname(os.path.join(root, fb.SPO2_WEIGHTS)),
+              os.path.dirname(os.path.join(root, fb.MNIST_FC1_WEIGHTS))):
+        os.makedirs(d, exist_ok=True)
+    w = rng.integers(-3, 4, (300, 1))
+    for i in range(PARITY_PATIENTS):
+        x = rng.integers(0, 32, (PARITY_ROWS, 300))
+        y = ((x @ w)[:, 0] + rng.integers(-40, 41, PARITY_ROWS) > 0).astype(int)
+        stem = os.path.join(siesta, f"c{i:06d}")
+        np.savetxt(stem + "_data.txt", x, fmt="%d", delimiter=",")
+        np.savetxt(stem + "_binaryoutput.txt", y, fmt="%d")
+    pocketnn.save_csv_matrix(os.path.join(root, fb.SPO2_WEIGHTS), w)
+    pocketnn.save_csv_matrix(os.path.join(root, fb.MNIST_FC1_WEIGHTS), rng.integers(-2, 2, (784, 128)))
+    pocketnn.save_csv_matrix(os.path.join(root, fb.MNIST_FC2_WEIGHTS), rng.integers(-2, 2, (128, 10)))
+    write_mnist_idx(mnist, rng.integers(0, 256, (PARITY_IMAGES, 784)),
+                    rng.integers(0, 10, PARITY_IMAGES))
+    return siesta
+
+
+def phase_accuracy_parity():
+    """``accuracy_parity_report`` on the card, from a temporary reference
+    tree of surrogates (``write_reference_tree``): the float SpO2 logistic
+    regression (400 full-batch Adam steps over PARITY_PATIENTS patients), the
+    SpO2 1FC integer accuracy, the float MNIST 2FC (784 -> 128 -> square ->
+    10, 3 epochs over 8,000 images), the MNIST 2FC integer accuracy on 2,000
+    images, then ``build_stack`` at N=1024 / 13 limbs and
+    ``hhe_1fc_inference`` on PARITY_SAMPLES samples with its hard parity
+    check.  Gates: the encrypted columns equal the integer ones, K1 and K2
+    launched, and the float SpO2 weights of a card run within FLOAT_SPO2_TOL
+    of a CPU run's with the same predictions on every row.  Records every
+    column, the synchronised seconds of each part, the seconds of the float
+    SpO2 run again on the card and on the CPU, the float weights' largest
+    difference and the peak memory."""
+    import torch
+
+    from hhe_tpu_torch.ops import ntt_kernels
+    from hhe_tpu_torch.workloads import float_baseline as fb
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    parts = ("train_float_spo2", "spo2_integer_accuracy", "train_float_mnist_2fc",
+             "mnist_integer_accuracy")
+    with tempfile.TemporaryDirectory() as tmp:
+        siesta = write_reference_tree(tmp, np.random.default_rng(19))
+        torch.cuda.reset_peak_memory_stats()
+        ntt_kernels.reset_launches()
+        with ShapeRecorder() as rec, PhaseTimer(fb, parts) as pt, \
+                PhaseTimer(wk, ("build_stack", "hhe_1fc_inference")) as pt_he:
+            rep, wall = timed(lambda: fb.accuracy_parity_report(
+                encrypted_samples=PARITY_SAMPLES, reference_root=tmp))
+        launches = dict(ntt_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        card, card_s = timed(lambda: fb.train_float_spo2(root=siesta))
+        cpu, cpu_s = timed(lambda: fb.train_float_spo2(root=siesta, device="cpu"))
+        x, _ = fb.load_siesta(siesta, 40)
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(card.params, cpu.params))
+    xs = torch.as_tensor(((x - x.mean(0)) / (x.std(0) + 1e-6)).astype(np.float32))
+    agree = torch.equal(xs @ card.params[0].cpu() + card.params[1].cpu() > 0,
+                        xs @ cpu.params[0] + cpu.params[1] > 0)
+    stats = {"report": rep, "wall_s": wall, "seconds": {**pt.seconds, **pt_he.seconds},
+             "float_spo2_again_s_card_cpu": [card_s, cpu_s],
+             "float_spo2_max_weight_diff_vs_cpu": diff,
+             "float_spo2_accuracies_card_cpu": [card.train_acc, card.test_acc,
+                                                cpu.train_acc, cpu.test_acc],
+             "peak_mem_gib": peak}
+    log(f"accuracy_parity: encrypted parity held on {PARITY_SAMPLES} samples at N=1024 / "
+        f"13 limbs, launches {launches}")
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    for model in ("spo2_1fc", "mnist_2fc"):
+        if rep[model]["encrypted"] != rep[model]["integer"]:
+            raise AssertionError(f"{model}: encrypted column differs from the integer one")
+    if rep["spo2_1fc"].get("encrypted_parity_checked_samples") != PARITY_SAMPLES:
+        raise AssertionError("the encrypted samples were not checked")
+    if diff > FLOAT_SPO2_TOL or not agree:
+        raise AssertionError(f"float SpO2 on the card: weights {diff} from the CPU's, "
+                             f"predictions agree: {agree}")
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the accuracy path: {launches}")
+    return stats, launches, rec.calls
+
+
 def free_device():
     import gc
 
@@ -1477,6 +1697,10 @@ def main():
     free_device()
     hcnn, launches["he_conv"], calls["he_conv"] = phase_he_conv()
     free_device()
+    training = phase_training()
+    free_device()
+    parity, launches["accuracy_parity"], calls["accuracy_parity"] = phase_accuracy_parity()
+    free_device()
     chain, launches["large_chain"], calls["large_chain"] = phase_large_chain()
     free_device()
     rot32k, launches["rotation_32768"], calls["rotation_32768"] = phase_rotation_32768()
@@ -1488,6 +1712,7 @@ def main():
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
                       "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
                       "fmnist_1fc": fmnist, "mnist_2fc": mnist, "he_conv": hcnn,
+                      "training": training, "accuracy_parity": parity,
                       "large_chain": chain, "rotation_32768": rot32k,
                       "large_keystream": large}), flush=True)
     print(smi, flush=True)

@@ -6,10 +6,15 @@ Same module layout as ``hhe_tpu`` so each piece has a named counterpart:
   the homomorphic transcipher and HE linear algebra (helin); the NTT runs as
   hand-written CUDA kernels (``csrc/ntt.cu``, bound in ``ops/ntt_kernels``)
   for tensors on the card and as plain PyTorch for tensors on the CPU;
-- ``models``    — the integer sigmoids of the HHE pipeline;
-- ``workloads`` — the encrypted ECG inference (``hhe_inference``);
-- ``utils``     — checks and the array container;
-- ``convert``   — keys and ciphertexts to and from the JAX package's arrays.
+- ``models``    — the integer network (PocketNN: activations, batch norm,
+  DFA/backprop steps, integer conv) and the dataset loaders;
+- ``workloads`` — the encrypted inference pipelines (``hhe_inference``,
+  ``he_conv``), QAT (``qat``), integer DFA training (``training``) and the
+  float/integer/encrypted accuracy report (``float_baseline``);
+- ``parties``   — the three-party gRPC protocol;
+- ``utils``     — checks, configuration, metrics and serialization;
+- ``convert``   — keys, ciphertexts and training state to and from the JAX
+  package's arrays.
 
 Residues are int32 tensors holding the JAX package's uint32 bits.  Entry
 points run on CUDA unless the caller passes ``device="cpu"``.  This package
