@@ -10,7 +10,7 @@ Phases (any failure propagates and the exit code is nonzero):
    instance that spills registers fails;
 2. kernels: each kernel against its plain PyTorch version (``torch.equal``)
    for 30-bit (lazy) and 31-bit (eager) moduli and t at every
-   N = 2^8 ... 2^16 (each a kernel instance of its own; above 2^14 the row
+   N = 2^5 ... 2^16 (each a kernel instance of its own; above 2^14 the row
    is cut into 64 KB parts and the top passes run too), with fewer 64 KB
    tiles than the card has SMs and with at least four tiles a block, and
    inv(fwd(x)) == x;
@@ -25,6 +25,15 @@ Phases (any failure propagates and the exit code is nonzero):
    ``torch.profiler`` (device busy time by kernel).  On the same stack:
    ``mod_switch_to_next`` of the decomposed sample from 13 limbs to one,
    decrypting right at every level, with ``cipher_size`` before and after;
+   then the parallel path at world size 1 (a one-rank NCCL group): the
+   four-step ``ShardedNtt`` at N = 1024, 4096, 16384 and 65536 (local
+   transforms of M = 32 ... 256) equal to ``poly_mul_host``,
+   ``keygen_public(mesh=)`` at the large preset cut to 3 limbs equal in
+   bytes to the host path, ``csp_decompose(mesh=)`` on this stack equal to
+   the unsplit result, the host-expanded keystream
+   (``expand_on_device=False``) equal to the device-expanded one, and the
+   native PASTA expansion (which every phase must have used) against the
+   pure-Python one, ms each;
    then the full-dataset ECG run, ``hhe_ecg_full_inference`` (surrogate
    ecg_512 weights and a 13,245-row label file written to temporary CSVs,
    chunks of 512, products in slices of 64), over ``--ecg-full-samples``
@@ -257,7 +266,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ntt_kernels.reset_launches()
-    for logn in range(8, 17):
+    for logn in range(5, 17):
         n = 1 << logn
         t = 65537 if n <= 32768 else bfv.large_params().t  # t - 1 must divide 2N
         for bits, k in ((30, 13), (30, 14), (31, 15), (17, 1)):
@@ -674,6 +683,141 @@ def phase_main_path():
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
     return stack, launches, rec.calls, stats, (d0, x[0])
+
+
+# the parallel phase's four-step NTTs: (N, limbs), local transforms of
+# M = 32, 64, 128, 256 (N = 1024 and 16384 at the production limb count,
+# 4096 at default_context's, 65536 at the sharded keygen's)
+PARALLEL_NTTS = ((1024, 13), (4096, 4), (16384, 13), (65536, 3))
+
+
+def phase_parallel(stack):
+    """The parallel path (``hhe_tpu_torch.parallel``) at world size 1 on the
+    card: a one-rank NCCL group on an in-memory store, a ("poly",) mesh and
+    the ("batch", "limb") mesh.  Each ``ShardedNtt`` of PARALLEL_NTTS
+    (roundtrip the identity, ``negacyclic_mul`` equal to ``poly_mul_host``);
+    ``keygen_public(sk, mesh=)`` at ``large_params(data_limbs=3)`` equal in
+    bytes to the host path; on the ECG stack (N=16384, 13 limbs, B=64)
+    ``csp_decompose(mesh=)`` equal to the unsplit result bit for bit (each
+    with its keystream evaluated afresh) and decrypting to its input, and
+    ``keystream_ct(expand_on_device=False)`` equal to the default; K1 and K2
+    must launch at M = 128 and 256.  Then, outside the counted run: the
+    native and the pure-Python PASTA block expansion, equal, ms each with
+    the cache cleared (the native one must be what every earlier phase
+    used), and the sharded transforms' and the single-card NTT's times."""
+    import torch
+    import torch.distributed as dist
+
+    from hhe_tpu_torch import native
+    from hhe_tpu_torch.ops import bfv, ntt, ntt_kernels, pasta, primes, transcipher
+    from hhe_tpu_torch.parallel import mesh as hmesh
+    from hhe_tpu_torch.parallel import ntt_shard
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    t_phase = time.perf_counter()
+    stats = {"ntt": {}}
+    poly = hmesh.make_mesh((1,), ("poly",))
+    mesh = hmesh.make_hhe_mesh()
+    stats["backend"], stats["world_size"] = dist.get_backend(), dist.get_world_size()
+    ctx, tc = stack.ctx, stack.tc
+    key = pasta.get_fixed_symmetric_key()
+    x = np.random.default_rng(11).integers(0, 64, (B, transcipher.T))
+    nonce = 70_000
+    sym = pasta.Pasta(key, ctx.t).encrypt(x.astype(np.uint64), nonce=nonce)
+    enc_key = tc.encrypt_key(stack.pk, key)
+    operands, shardeds = {}, {}
+
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        for n, k in PARALLEL_NTTS:
+            mods = primes.ntt_primes(n, 30, k)
+            rng = np.random.default_rng(n)
+            a = np.stack([rng.integers(0, q, n) for q in mods]).astype(np.uint32)
+            b = np.stack([rng.integers(0, q, n) for q in mods]).astype(np.uint32)
+            (sn, plan_s) = timed(lambda: ntt_shard.ShardedNtt(mods, n, poly))
+            xl = sn.shard(a)
+            rt = ntt.u32_to_numpy(sn.gather(sn.inv(sn.fwd(xl))))
+            prod = ntt.u32_to_numpy(sn.negacyclic_mul(a, b)).astype(np.uint64)
+            want = np.stack([ntt.poly_mul_host(a[i].astype(np.uint64), b[i].astype(np.uint64), q)
+                             for i, q in enumerate(mods)])
+            if not (np.array_equal(rt, a) and np.array_equal(prod, want)):
+                raise AssertionError(f"ShardedNtt wrong at N={n}, {k} limbs")
+            stats["ntt"][n] = {"limbs": k, "n1": sn.plan.n1, "n2": sn.plan.n2, "plan_s": plan_s}
+            operands[n], shardeds[n] = (xl, a), sn
+        stats["sharded_ntt_checks_s"] = time.perf_counter() - t0
+
+        params = bfv.large_params(data_limbs=3, seed=9)
+        ca, cb = bfv.Context(params), bfv.Context(params)
+        pk_host, stats["keygen_host_s"] = timed(lambda: ca.keygen_public(ca.keygen_secret()))
+        sk_b = cb.keygen_secret()
+        pk_mesh, stats["keygen_mesh_s"] = timed(lambda: cb.keygen_public(sk_b, mesh=poly))
+        if pk_host.data.tobytes() != pk_mesh.data.tobytes():
+            raise AssertionError("keygen_public(mesh=) differs from the host path")
+        v = np.arange(100, dtype=np.int64)
+        if not np.array_equal(cb.decode(cb.decrypt(sk_b, cb.encrypt(pk_mesh, cb.encode(v))))[:100], v):
+            raise AssertionError("the sharded keygen's public key does not encrypt")
+
+        tc.clear_caches()
+        whole, stats["decompose_s"] = timed(lambda: wk.csp_decompose(stack, enc_key, sym, nonce=nonce))
+        tc.clear_caches()
+        split, stats["decompose_mesh_s"] = timed(
+            lambda: wk.csp_decompose(stack, enc_key, sym, nonce=nonce, mesh=mesh))
+        if not torch.equal(whole.data, split.data):
+            raise AssertionError("csp_decompose(mesh=) differs from the unsplit result")
+        one = bfv.Ciphertext(split.data[:, 5])
+        if not np.array_equal(ctx.decode(ctx.decrypt(stack.sk, one))[: transcipher.T], x[5]):
+            raise AssertionError("a sample of csp_decompose(mesh=) decrypts wrong")
+        tc.clear_caches()
+        ks_host, stats["keystream_host_expansion_s"] = timed(
+            lambda: tc.keystream_ct(enc_key, nonce, 0, expand_on_device=False))
+        tc.clear_caches()
+        ks_dev, stats["keystream_device_expansion_s"] = timed(
+            lambda: tc.keystream_ct(enc_key, nonce, 0))
+        if not torch.equal(ks_host.data, ks_dev.data):
+            raise AssertionError("keystream_ct(expand_on_device=False) differs from the default")
+        tc.clear_caches()
+    launches = dict(ntt_kernels.LAUNCHES)
+    ms = {(shape[-1], name) for name, calls in rec.calls.items() for shape, _ in calls}
+    for m in (128, 256):
+        for name in ("ntt_fwd", "ntt_inv"):
+            if (m, name) not in ms:
+                raise AssertionError(f"{name} did not launch at M={m} on the parallel path")
+    log(f"parallel ({stats['backend']}, world {stats['world_size']}): ShardedNtt at "
+        f"{[n for n, _ in PARALLEL_NTTS]} equal to poly_mul_host, sharded keygen equal to the "
+        f"host's, csp_decompose(mesh=) and the host-expanded keystream equal to the unsplit "
+        f"ones; launches {launches}")
+
+    # outside the counted run: the PASTA block expansion, native against Python
+    if not native.available() or pasta.EXPANSIONS["python"] or not pasta.EXPANSIONS["native"]:
+        raise AssertionError(f"the native PASTA expansion is not the one in use: {pasta.EXPANSIONS}")
+    pasta.block_randomness.cache_clear()
+    nat, stats["block_randomness_native_ms"] = timed(lambda: pasta.block_randomness(ctx.t, nonce, 1))
+    pure, stats["block_randomness_python_ms"] = timed(
+        lambda: pasta.block_randomness_python(ctx.t, nonce, 1))
+    stats["block_randomness_native_ms"] *= 1e3
+    stats["block_randomness_python_ms"] *= 1e3
+    if not all(np.array_equal(g, w) for gs, ws in zip(nat, pure) for g, w in zip(gs, ws)):
+        raise AssertionError("native and Python PASTA expansions differ")
+    stats["expansions"] = dict(pasta.EXPANSIONS)
+
+    # the sharded transforms against the single-card NTT on the same [k, N]
+    for n, (xl, a) in operands.items():
+        sn = shardeds[n]
+        tb = ntt.build_tables(sn.moduli, n, xl.device)
+        fl = sn.fwd(xl)
+        stats["ntt"][n].update(
+            sharded_fwd_ms=cuda_ms(lambda: sn.fwd(xl), 10),
+            sharded_inv_ms=cuda_ms(lambda: sn.inv(fl), 10),
+            single_fwd_ms=cuda_ms(lambda: ntt.ntt_fwd(xl, tb), 10),
+            single_inv_ms=cuda_ms(lambda: ntt.ntt_inv(xl, tb), 10),
+        )
+    del operands, shardeds
+    dist.destroy_process_group()
+    stats["wall_s"] = time.perf_counter() - t_phase
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    return stats, launches, rec.calls
 
 
 def reference_files(tmp, **arrays):
@@ -1681,6 +1825,8 @@ def main():
     mod_switch = phase_mod_switch(stack, d0, x0)
     del enc_key, d0
     free_device()
+    parallel, launches["parallel"], calls["parallel"] = phase_parallel(stack)
+    free_device()
     ecg_full, launches["ecg_full"], calls["ecg_full"] = phase_ecg_full(
         stack, args.ecg_full_samples)
     del stack
@@ -1710,7 +1856,7 @@ def main():
     rows = kernel_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
-                      "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
+                      "parallel": parallel, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
                       "fmnist_1fc": fmnist, "mnist_2fc": mnist, "he_conv": hcnn,
                       "training": training, "accuracy_parity": parity,
                       "large_chain": chain, "rotation_32768": rot32k,

@@ -1,6 +1,6 @@
 // Negacyclic NTT over RNS limbs for Hopper (sm_90a): the forward and the
 // inverse transform of every (batch row, limb) polynomial of an int32
-// [..., k, N] tensor, modulo that limb's q < 2^31, for N = 2^8 ... 2^16.
+// [..., k, N] tensor, modulo that limb's q < 2^31, for N = 2^5 ... 2^16.
 //
 // Replaces the TPU kernels hhe_tpu/ops/ntt_pallas.py `_fwd_kernel` (forward,
 // natural -> bit-reversed order) and `_inv_kernel` (inverse, bit-reversed ->
@@ -604,6 +604,10 @@ int dispatch(const Operands& op, int logn, bool top, int max_blocks, cudaStream_
     }
   }
   switch (logn) {
+    // N = 32 ... 128: the four-step NTT's local transforms (parallel/ntt_shard.py)
+    case 5: return launch<5, FWD, LAZY>(op, max_blocks, stream);
+    case 6: return launch<6, FWD, LAZY>(op, max_blocks, stream);
+    case 7: return launch<7, FWD, LAZY>(op, max_blocks, stream);
     case 8: return launch<8, FWD, LAZY>(op, max_blocks, stream);
     case 9: return launch<9, FWD, LAZY>(op, max_blocks, stream);
     case 10: return launch<10, FWD, LAZY>(op, max_blocks, stream);

@@ -255,16 +255,31 @@ class Context:
         s = self._sample_ternary()
         return SecretKey(s.astype(np.int8), self._small_to_rns(s, self.q_moduli).astype(np.uint32))
 
-    def keygen_public(self, sk: SecretKey) -> PublicKey:
-        """pk = (-(a s + e), a) over base q, coefficient domain."""
+    def keygen_public(self, sk: SecretKey, mesh=None) -> PublicKey:
+        """pk = (-(a s + e), a) over base q, coefficient domain.
+
+        With ``mesh`` (a ``parallel.mesh.Mesh`` with a "poly" axis, on this
+        context's device) the products a*s run through the four-step NTT
+        split over that axis (``parallel.ntt_shard``), the backend the JAX
+        package gives the N = 65536 large preset.  a and e are the same host
+        draws, so every rank gets the host path's key, bit for bit."""
         a = self._sample_uniform(self.q_moduli)
         e = self._sample_cbd()
         s_rns = self._small_to_rns(sk.s_small, self.q_moduli)
         e_rns = self._small_to_rns(e, self.q_moduli)
-        pk0 = np.empty_like(a)
-        for i, q in enumerate(self.q_moduli):
-            as_ = ntt.poly_mul_host(a[i], s_rns[i], q)
-            pk0[i] = (q - (as_ + e_rns[i]) % q) % q
+        if mesh is not None:
+            from ..parallel import ntt_shard
+
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, context on {self.device}")
+            sn = ntt_shard.ShardedNtt(self.q_moduli, self.n, mesh)
+            as_all = ntt.u32_to_numpy(sn.negacyclic_mul(a, s_rns)).astype(np.uint64)
+        else:
+            as_all = np.stack(
+                [ntt.poly_mul_host(a[i], s_rns[i], q) for i, q in enumerate(self.q_moduli)]
+            )
+        q = np.array(self.q_moduli, np.uint64)[:, None]
+        pk0 = (q - (as_all + e_rns) % q) % q
         return PublicKey(np.stack([pk0, a]).astype(np.uint32))
 
     def _ks_factor_mont(self) -> torch.Tensor:

@@ -347,3 +347,20 @@ def poly_mul_host(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
     fa = ntt_fwd_host(a, tb)
     fb = ntt_fwd_host(b, tb)
     return ntt_inv_host((fa * fb) % np.uint64(q), tb)
+
+
+def negacyclic_mul_host(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """O(N^2) schoolbook negacyclic product mod q (exact Python integers),
+    the cross-check of the NTT products."""
+    n = a.shape[-1]
+    ai = [int(v) for v in np.asarray(a, np.uint64)]
+    bi = [int(v) for v in np.asarray(b, np.uint64)]
+    res = np.zeros(n, dtype=object)
+    for i in range(n):
+        s = 0
+        for j in range(i + 1):
+            s += ai[j] * bi[i - j]
+        for j in range(i + 1, n):
+            s -= ai[j] * bi[n + i - j]
+        res[i] = s % q
+    return res.astype(np.uint64)

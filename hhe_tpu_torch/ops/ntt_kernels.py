@@ -26,7 +26,7 @@ stages that mix the parts, before (forward) or after (inverse) the tile
 kernel transforms each part with the part's own table.
 
 The wrappers take only what the kernels take — a contiguous, 16-byte aligned
-int32 CUDA tensor ``[..., k, N]`` with 256 <= N <= 65536 a power of two and
+int32 CUDA tensor ``[..., k, N]`` with 32 <= N <= 65536 a power of two and
 the matching tables on the same device — and raise on anything else, a CPU
 tensor included.  The kernel instance is chosen from N and the moduli alone.
 ``LAUNCHES`` counts the launches of each kernel, the top passes under their
@@ -50,7 +50,7 @@ import torch
 
 from .ntt import TILE  # words of one shared-memory tile: a row, or a part of a longer one
 
-MIN_N = 256
+MIN_N = 32  # the four-step NTT's smallest local transform (N = 1024 = 32 x 32)
 MAX_N = 65536  # four parts
 ALIGN = 16  # bytes; the bulk copies need it
 

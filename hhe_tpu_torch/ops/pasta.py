@@ -1,13 +1,16 @@
 """PASTA-3 symmetric stream cipher over Z_p, bit-exact with the reference.
 
 The port's own copy of ``hhe_tpu.ops.pasta`` (host-side numpy, no device
-code), without the optional native expansion. Re-design of the reference
-cipher (``src/pasta/pasta_3_plain.{h,cpp}`` and ``libs/keccak``):
+code). Re-design of the reference cipher (``src/pasta/pasta_3_plain.{h,cpp}``
+and ``libs/keccak``):
 
-- SHAKE128 expansion uses CPython's built-in FIPS-202 implementation
-  (``hashlib.shake_128``) wrapped as an incremental XOF stream — bit-exact with
-  the vendored Keccak library (validated against golden vectors generated from
-  the reference binary, see ``tests/test_pasta.py``).
+- The per-block SHAKE128 expansion runs in C++ (``hhe_tpu_torch.native``)
+  when that library builds, as the JAX package's does; otherwise it uses
+  CPython's built-in FIPS-202 implementation (``hashlib.shake_128``) wrapped
+  as an incremental XOF stream (``block_randomness_python``, the semantic
+  reference).  Both are bit-exact with the vendored Keccak library (golden
+  vectors from the reference binary, ``tests/test_pasta.py``);
+  ``EXPANSIONS`` counts which one expanded each uncached block.
 - All per-(nonce, block) randomness (round matrices, round constants) is
   **key-independent** and therefore precomputed once on the host and cached;
   the keystream itself is vectorized numpy (u64 exact: all values < 2^17, so
@@ -114,6 +117,10 @@ def _expand_matrix(first_row: np.ndarray, p: int) -> np.ndarray:
     return mat
 
 
+# uncached block expansions by route: "native" (C++) or "python" (hashlib)
+EXPANSIONS = {"native": 0, "python": 0}
+
+
 @functools.lru_cache(maxsize=4096)
 def block_randomness(
     p: int, nonce: int, block_counter: int
@@ -126,8 +133,25 @@ def block_randomness(
     keystream (pasta_3_plain.cpp:198-217) and the transcipher
     (pasta_3_seal.cpp:128-147) consumption order.
 
-    Pure Python (hashlib SHAKE128 + numpy); one block costs a few ms.
-    """
+    Takes the native C++ expansion when ``native.available()``, else
+    ``block_randomness_python``; ``EXPANSIONS`` says which ran."""
+    from .. import native
+
+    if not native.available():
+        EXPANSIONS["python"] += 1
+        return block_randomness_python(p, nonce, block_counter)
+    EXPANSIONS["native"] += 1
+    m1, m2, r1, r2 = native.pasta_block_randomness(p, nonce, block_counter)
+    for a in (m1, m2, r1, r2):
+        a.setflags(write=False)
+    return tuple(tuple(a[r] for r in range(PASTA_R + 1)) for a in (m1, m2, r1, r2))
+
+
+def block_randomness_python(
+    p: int, nonce: int, block_counter: int
+) -> Tuple[Tuple[np.ndarray, ...], ...]:
+    """``block_randomness`` in pure Python (hashlib SHAKE128 + numpy), not
+    cached; one block costs a few ms."""
     stream = ShakeStream(_shake_seed(nonce, block_counter))
     mats1, mats2, rcs1, rcs2 = [], [], [], []
     for _ in range(PASTA_R + 1):

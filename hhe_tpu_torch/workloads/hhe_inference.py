@@ -134,14 +134,21 @@ def build_stack(
 
 
 def csp_decompose(
-    stack: HHEStack, enc_key: Ciphertext, sym_data: np.ndarray, nonce: int = pasta.NONCE
+    stack: HHEStack,
+    enc_key: Ciphertext,
+    sym_data: np.ndarray,
+    nonce: int = pasta.NONCE,
+    mesh=None,
 ) -> Ciphertext:
     """Transcipher + postprocess (mask tail, flatten) for a batch [B, L].
-    Returns batched ct [2, B, k, N] holding each sample in slots [0, L)."""
+    Returns batched ct [2, B, k, N] holding each sample in slots [0, L).
+
+    With ``mesh`` the sample batch is split over the mesh's batch axis
+    (``Transcipher.decompose``); every rank returns the whole result."""
     ctx = stack.ctx
     sym_data = np.atleast_2d(np.asarray(sym_data, np.uint64))
     L = sym_data.shape[1]
-    blocks = stack.tc.decompose(enc_key, sym_data, nonce=nonce)
+    blocks = stack.tc.decompose(enc_key, sym_data, nonce=nonce, mesh=mesh)
     tail = L % transcipher.T
     if tail != 0:
         blocks[-1] = helin.mask(ctx, blocks[-1], helin.make_mask(ctx, tail))

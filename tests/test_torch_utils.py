@@ -11,12 +11,14 @@ import pytest
 import torch
 
 from hhe_tpu.ops import bfv as jbfv
+from hhe_tpu.utils import checks as jchecks
 from hhe_tpu.utils import config as jconfig
 from hhe_tpu.utils import metrics as jmetrics
 from hhe_tpu.utils import serial as jserial
 from hhe_tpu.workloads.hhe_inference import _split_batch as j_split_batch
 from hhe_tpu_torch import convert
 from hhe_tpu_torch.ops import bfv as tbfv
+from hhe_tpu_torch.utils import checks as tchecks
 from hhe_tpu_torch.utils import config as tconfig
 from hhe_tpu_torch.utils import metrics as tmetrics
 from hhe_tpu_torch.utils import serial as tserial
@@ -225,3 +227,29 @@ def test_csv_matrix_and_mitbih_labels_match_jax(tmp_path):
     bal = tloaders.load_mitbih_labels("train", balanced=True, root=str(tmp_path))
     assert np.array_equal(bal, lab[:9])
     assert tloaders.MITBIH_ROOT.startswith(tloaders.REFERENCE_ROOT)
+
+
+@pytest.mark.parametrize(
+    "fn, a, b",
+    [
+        ("are_same_vectors", [1, 2, 3], [1, 2, 3]),
+        ("are_same_vectors", [1, 2, 3], [1, 2, 4]),
+        ("are_same_vectors", [1, 2, 3], [1, 2]),
+        ("are_same_vectors", np.zeros(3, np.uint64), np.zeros(3, np.int32)),
+        ("are_same_matrices", [[1, 2], [3, 4]], [[1, 2], [3, 4]]),
+        ("are_same_matrices", [[1, 2], [3, 4]], [[1, 2], [3, 5]]),
+        ("are_same_matrices", [1, 2], [[1, 2]]),
+        ("are_same_matrices", [[1, 2]], [[1], [2]]),
+    ],
+)
+def test_are_same_checks_raise_where_jax_does(fn, a, b):
+    """are_same_vectors / are_same_matrices raise CheckFailed (with the
+    message given) exactly where the JAX package's do."""
+    def outcome(mod):
+        try:
+            getattr(mod, fn)(a, b, msg="differ here")
+        except mod.CheckFailed as e:
+            return str(e)
+        return None
+
+    assert outcome(tchecks) == outcome(jchecks)
