@@ -34,6 +34,15 @@ Phases (any failure propagates and the exit code is nonzero):
    (``expand_on_device=False``) equal to the device-expanded one, and the
    native PASTA expansion (which every phase must have used) against the
    pure-Python one, ms each;
+   then the limb path at world size 1 (a one-rank NCCL group, the
+   ("batch": 1, "limb": 1) mesh): the ``LimbView`` of the ECG stack must be
+   split (its 13 limbs in one block), and the keystream of one block on the
+   key placed by ``shard_limbs``, ``csp_decompose(mesh=)`` of B=64 samples
+   and ``csp_eval_1fc(mesh=)`` without and with the log-depth sum, gathered
+   by ``gather_limbs`` / ``gather_batch``, must each equal the unsplit path
+   bit for bit, the predictions the plaintext model's and the sums x @ w
+   mod t; keystream and FC times split and unsplit, the all-gathers of a
+   block and the key bytes each rank holds;
    then the full-dataset ECG run, ``hhe_ecg_full_inference`` (surrogate
    ecg_512 weights and a 13,245-row label file written to temporary CSVs,
    chunks of 512, products in slices of 64), over ``--ecg-full-samples``
@@ -813,6 +822,121 @@ def phase_parallel(stack):
             single_inv_ms=cuda_ms(lambda: ntt.ntt_inv(xl, tb), 10),
         )
     del operands, shardeds
+    dist.destroy_process_group()
+    stats["wall_s"] = time.perf_counter() - t_phase
+    for key_, val in stats.items():
+        log(f"  {key_}: {val}")
+    return stats, launches, rec.calls
+
+
+def phase_limb(stack):
+    """The limb path (``parallel.limb_shard``) at world size 1 on the card:
+    a one-rank NCCL group and the ("batch": 1, "limb": 1) mesh, on the ECG
+    stack (N=16384, 13 limbs, device keygen), B=64 samples.  First the
+    unsplit path (outside the counted run): one keystream block, the
+    finish (``csp_decompose``), ``csp_eval_1fc`` without and with the
+    log-depth sum.  Then, counted: the same through the limb view, the
+    encrypted key placed by ``shard_limbs``, the FC on the decomposed batch
+    placed by ``shard_ciphertext_batch``, each result gathered.  The view
+    must be split (limbs 0..12 in one block: a view that kept its limbs
+    whole where the mesh divides them fails), every result must equal the
+    unsplit one bit for bit, the predictions the plaintext model's and the
+    summed slots x @ w mod t, and K1 and K2 must launch.  Then, outside the
+    counted run, keystream and FC times split and unsplit, the all-gathers
+    (and bytes) of a keystream block, and the bytes of the key set each
+    rank holds against the whole set's."""
+    import torch
+    import torch.distributed as dist
+
+    from hhe_tpu_torch.models import pocketnn
+    from hhe_tpu_torch.ops import bfv, ntt_kernels, pasta, transcipher
+    from hhe_tpu_torch.parallel import mesh as hmesh
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    t_phase = time.perf_counter()
+    stats = {}
+    mesh = hmesh.make_hhe_mesh()
+    stats["backend"], stats["mesh"] = dist.get_backend(), mesh.shape
+    ctx, tc = stack.ctx, stack.tc
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 64, (B, transcipher.T))
+    w = rng.integers(-508, 509, transcipher.T)
+    key = pasta.get_fixed_symmetric_key()
+    nonce = 90_000
+    sym = pasta.Pasta(key, ctx.t).encrypt(x.astype(np.uint64), nonce=nonce)
+    enc_key = tc.encrypt_key(stack.pk, key)
+    wct = bfv.Ciphertext(helin_weight(stack, w).data[:, None])
+
+    # the unsplit path on the same inputs
+    tc.clear_caches()
+    ks, stats["keystream_unsplit_first_s"] = timed(lambda: tc.keystream_ct(enc_key, nonce, 0))
+    dec, stats["finish_unsplit_s"] = timed(lambda: wk.csp_decompose(stack, enc_key, sym, nonce=nonce))
+    prod, stats["csp_eval_1fc_unsplit_s"] = timed(lambda: wk.csp_eval_1fc(stack, dec, wct, do_sum=False))
+    summed, stats["csp_eval_1fc_sum_unsplit_s"] = timed(
+        lambda: wk.csp_eval_1fc(stack, dec, wct, do_sum=True))
+
+    tcl, stats["view_build_s"] = timed(lambda: tc.on_limbs(mesh))
+    view = tcl.ctx
+    if not (view.split and view.limbs == range(ctx.k) and tcl is not tc):
+        raise AssertionError(f"the limb view did not split where the mesh divides the limbs: {view}")
+    key_l = hmesh.shard_limbs(enc_key, mesh)
+    if key_l.data.shape != (2, len(view.limbs), ctx.n):
+        raise AssertionError(f"shard_limbs placed {tuple(key_l.data.shape)}")
+
+    ntt_kernels.reset_launches()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        ks_l = tcl.keystream_ct(key_l, nonce, 0)
+        dec_l = wk.csp_decompose(stack, key_l, sym, nonce=nonce, mesh=mesh)
+        ct_l = hmesh.shard_ciphertext_batch(dec_l, mesh)
+        prod_l = wk.csp_eval_1fc(stack, ct_l, wct, do_sum=False, mesh=mesh)
+        summed_l = wk.csp_eval_1fc(stack, ct_l, wct, do_sum=True, mesh=mesh)
+        got = {name: hmesh.gather_batch(hmesh.gather_limbs(t.data, mesh), mesh)
+               for name, t in (("prod", prod_l), ("summed", summed_l))}
+        got["keystream"] = hmesh.gather_limbs(ks_l.data, mesh)
+        torch.cuda.synchronize()
+        stats["limb_path_s"] = time.perf_counter() - t0
+    launches = dict(ntt_kernels.LAUNCHES)
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+        raise AssertionError(f"a kernel did not launch on the limb path: {launches}")
+    for name, want in (("keystream", ks.data), ("prod", prod.data), ("summed", summed.data)):
+        if not torch.equal(got[name], want):
+            raise AssertionError(f"the limb path's {name} differs from the unsplit path's")
+    if not torch.equal(dec_l.data, dec.data):
+        raise AssertionError("csp_decompose(mesh=) on the limb view differs from the unsplit one")
+    sums = (x.astype(np.int64) * w).sum(1)
+    expect = np.where(pocketnn.simple_pocket_sigmoid(sums).numpy() > 64, 128, 0)
+    preds = wk.analyst_decrypt_sum_sigmoid(stack, bfv.Ciphertext(got["prod"]), transcipher.T)
+    if not np.array_equal(preds, expect):
+        raise AssertionError("the limb path's predictions differ from the plaintext model's")
+    slot0 = ctx.decode_batch(ctx.decrypt_batch(stack.sk, bfv.Ciphertext(got["summed"])))[:, 0]
+    if not np.array_equal(slot0.astype(np.int64), sums % ctx.t):
+        raise AssertionError("the limb path's summed slots differ from x @ w mod t")
+    log(f"limb ({stats['backend']}, mesh {mesh.shape}): {view}; keystream, decompose, FC and "
+        f"summed FC equal to the unsplit path; predictions equal the plaintext model's "
+        f"({int((preds == 128).sum())}/{B} positive); launches {launches}")
+
+    # outside the counted run: times split and unsplit, gathers, key bytes
+    def keystream(t, k):
+        t.clear_caches()
+        return t.keystream_ct(k, nonce, 0)
+
+    g0, b0 = view.all_gathers, view.gathered_bytes
+    stats["keystream_split_s"] = min(wall_s(lambda: keystream(tcl, key_l)) for _ in range(REPS))
+    stats["all_gathers_per_block"] = (view.all_gathers - g0) // REPS
+    stats["gathered_bytes_per_block"] = (view.gathered_bytes - b0) // REPS
+    stats["keystream_unsplit_s"] = min(wall_s(lambda: keystream(tc, enc_key)) for _ in range(REPS))
+    for tag, m, c in (("split", mesh, ct_l), ("unsplit", None, dec)):
+        for do_sum in (False, True):
+            stats[f"csp_eval_1fc{'_sum' if do_sum else ''}_{tag}_ms"] = 1e3 * min(
+                wall_s(lambda: wk.csp_eval_1fc(stack, c, wct, do_sum=do_sum, mesh=m))
+                for _ in range(REPS))
+    keyset = [stack.rk, *stack.gks.values()]
+    bsgs = lambda t: sum(k.nbytes for k in (t.baby_k0, t.baby_k1, t.giant_k0, t.giant_k1))
+    stats["key_bytes_rank"] = view.key_bytes(keyset) + bsgs(tcl)
+    stats["key_bytes_whole"] = sum(k.k0.nbytes + k.k1.nbytes for k in keyset) + bsgs(tc)
+    stats["rk_rows_rank"] = list(view.take_key(stack.rk).k0.shape)
+    tc.clear_caches()
     dist.destroy_process_group()
     stats["wall_s"] = time.perf_counter() - t_phase
     for key_, val in stats.items():
@@ -1827,6 +1951,8 @@ def main():
     free_device()
     parallel, launches["parallel"], calls["parallel"] = phase_parallel(stack)
     free_device()
+    limb, launches["limb"], calls["limb"] = phase_limb(stack)
+    free_device()
     ecg_full, launches["ecg_full"], calls["ecg_full"] = phase_ecg_full(
         stack, args.ecg_full_samples)
     del stack
@@ -1856,7 +1982,7 @@ def main():
     rows = kernel_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
-                      "parallel": parallel, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
+                      "parallel": parallel, "limb": limb, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
                       "fmnist_1fc": fmnist, "mnist_2fc": mnist, "he_conv": hcnn,
                       "training": training, "accuracy_parity": parity,
                       "large_chain": chain, "rotation_32768": rot32k,

@@ -174,6 +174,27 @@ class Context:
 
         self.rng = np.random.default_rng(p.seed)
 
+    # The limb view protocol of the evaluator: ``parallel.limb_shard.LimbView``
+    # holds one rank's limbs and takes whole-context operands to them, or
+    # gathers a rank's limbs back; a Context holds every limb, so all four are
+    # the identity.
+
+    @property
+    def whole(self) -> "Context":
+        return self
+
+    def take(self, x):
+        return x
+
+    def take_qp(self, x):
+        return x
+
+    def take_key(self, ksk):
+        return ksk
+
+    def gather(self, x):
+        return x
+
     def synchronize(self):
         """Wait for the context's device, so that a timed phase holds its work."""
         if self.device.type == "cuda":

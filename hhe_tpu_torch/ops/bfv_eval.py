@@ -13,6 +13,13 @@ Plain functions on int32 ``[size, (B,) k, N]`` ciphertext tensors:
 
 Every polynomial product goes through ``ntt.ntt_fwd`` / ``ntt.ntt_inv``,
 which launch the CUDA kernels for tensors on the card.
+
+``ctx`` is a ``Context`` or a ``parallel.limb_shard.LimbView`` (one rank's
+limbs of a context).  Plaintexts and keys are whole-context; ``ctx.take*``
+takes them to the limbs held.  Each step that crosses limbs first gathers
+its operand (``ctx.gather``; the identity for a Context): the key-switch
+digits, and the q -> Bsk conversions of BEHZ, whose Bsk half every rank of
+a view computes whole.
 """
 
 from __future__ import annotations
@@ -143,14 +150,14 @@ def negate(ctx: Context, a: Ciphertext) -> Ciphertext:
 
 def add_plain(ctx: Context, a: Ciphertext, pt_dev: torch.Tensor) -> Ciphertext:
     """pt_dev = Context.plain_for_add(pt): [k, N] scaled round(Q m / t)."""
-    c0 = add_mod(a.data[0], pt_dev, ctx.tb_q.q)
+    c0 = add_mod(a.data[0], ctx.take(pt_dev), ctx.tb_q.q)
     return Ciphertext(torch.cat([c0[None], a.data[1:]], 0))
 
 
 def multiply_plain(ctx: Context, a: Ciphertext, pt_ntt_mont: torch.Tensor) -> Ciphertext:
     """pt_ntt_mont = Context.plain_for_mul(pt): [k, N] NTT+Mont."""
     f = ntt.ntt_fwd(a.data, ctx.tb_q)
-    g = mont_mul(f, pt_ntt_mont, ctx.tb_q.q, ctx.tb_q.qinv_neg)
+    g = mont_mul(f, ctx.take(pt_ntt_mont), ctx.tb_q.q, ctx.tb_q.qinv_neg)
     return Ciphertext(ntt.ntt_inv(g, ctx.tb_q))
 
 
@@ -181,8 +188,8 @@ def ntt_galois_src(ctx: Context, g: int) -> np.ndarray:
 
 
 def _digits(ctx: Context, poly_q: torch.Tensor, start: int, stop: int) -> torch.Tensor:
-    """Limbs start..stop-1 of poly_q, each reduced mod every modulus of
-    q ∪ P: [..., k, N] -> [..., stop-start, k+1, N]."""
+    """Limbs start..stop-1 of the whole poly_q, each reduced mod every
+    modulus of ctx's q ∪ P: [..., k, N] -> [..., stop-start, k'+1, N]."""
     pq = ctx.tb_qp.q
     return torch.stack(
         [reduce_u32(poly_q[..., j : j + 1, :], pq) for j in range(start, stop)], dim=-3
@@ -191,13 +198,16 @@ def _digits(ctx: Context, poly_q: torch.Tensor, start: int, stop: int) -> torch.
 
 def hoist_digits(ctx: Context, poly_q: torch.Tensor) -> torch.Tensor:
     """RNS digit decomposition + NTT, done once per ciphertext so many
-    rotations can share it: [..., k, N] -> [..., k, k+1, N]."""
-    return ntt.ntt_fwd(_digits(ctx, poly_q, 0, ctx.k), ctx.tb_qp)
+    rotations can share it: [..., k', N] -> [..., k, k'+1, N] (one limb
+    gather on a view: every digit reaches every modulus it holds)."""
+    whole = ctx.gather(poly_q)
+    return ntt.ntt_fwd(_digits(ctx, whole, 0, whole.shape[-2]), ctx.tb_qp)
 
 
 def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey):
     """Inner products of (permuted) hoisted digits with one rotation's keys:
-    [..., k, k+1, N] NTT digits -> (h0, h1) [..., k+1, N] NTT over q ∪ P."""
+    [..., k, k'+1, N] NTT digits -> (h0, h1) [..., k'+1, N] NTT over q ∪ P."""
+    ksk = ctx.take_key(ksk)
     qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
     t0 = mont_mul(fd_perm, ksk.k0, qp, qpi)
     t1 = mont_mul(fd_perm, ksk.k1, qp, qpi)
@@ -228,13 +238,16 @@ def keyswitch(
     ``digit_chunk`` processes the decomposition digits in groups of that
     size, bounding the hoisted-digit temporary; modular adds are exact so
     the regrouped accumulation is bit-identical."""
-    if digit_chunk is None or digit_chunk >= ctx.k:
+    kd = ctx.whole.k
+    if digit_chunk is None or digit_chunk >= kd:
         acc0, acc1 = hoisted_ks_products(ctx, hoist_digits(ctx, poly_q), ksk)
     else:
         qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
+        ksk = ctx.take_key(ksk)
+        poly_q = ctx.gather(poly_q)
         acc0 = acc1 = None
-        for s in range(0, ctx.k, digit_chunk):
-            e = min(s + digit_chunk, ctx.k)
+        for s in range(0, kd, digit_chunk):
+            e = min(s + digit_chunk, kd)
             fd = ntt.ntt_fwd(_digits(ctx, poly_q, s, e), ctx.tb_qp)
             t0 = mont_mul(fd, ksk.k0[s:e], qp, qpi)
             t1 = mont_mul(fd, ksk.k1[s:e], qp, qpi)
@@ -343,12 +356,18 @@ def _tensor(fa: torch.Tensor, fb_mont: torch.Tensor, q, qi) -> torch.Tensor:
 
 
 def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-    """BFV multiply: round(t/Q * (a ⊗ b)), result size a.size+b.size-1."""
+    """BFV multiply: round(t/Q * (a ⊗ b)), result size a.size+b.size-1.
+
+    On a view the q half runs on the rank's limbs; the two q -> Bsk
+    conversions sum over every q limb, so their operands are gathered and
+    the Bsk half is computed whole on every rank."""
     ec = eval_consts(ctx)
-    a_bsk = _to_bsk(ctx, a.data)
-    b_bsk = _to_bsk(ctx, b.data)
-    fa_q = ntt.ntt_fwd(a.data, ctx.tb_q)
-    fb_q = ntt.to_mont(ntt.ntt_fwd(b.data, ctx.tb_q), ctx.tb_q)
+    wa = ctx.gather(a.data)
+    wb = wa if b.data is a.data else ctx.gather(b.data)
+    a_bsk = _to_bsk(ctx.whole, wa)
+    b_bsk = _to_bsk(ctx.whole, wb)
+    fa_q = ntt.ntt_fwd(ctx.take(a.data), ctx.tb_q)
+    fb_q = ntt.to_mont(ntt.ntt_fwd(ctx.take(b.data), ctx.tb_q), ctx.tb_q)
     fa_b = ntt.ntt_fwd(a_bsk, ctx.tb_bsk)
     fb_b = ntt.to_mont(ntt.ntt_fwd(b_bsk, ctx.tb_bsk), ctx.tb_bsk)
     x_q = ntt.ntt_inv(_tensor(fa_q, fb_q, ec.q, ec.qi), ctx.tb_q)
@@ -356,7 +375,7 @@ def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     # fast floor of t*x / Q in Bsk
     tx_q = mont_mul(x_q, ec.t_mont_q, ec.q, ec.qi)
     tx_b = mont_mul(x_b, ec.t_mont_bsk, ec.bq, ec.bqi)
-    f = rns.fbc_apply(tx_q, ec.fbc_q_to_bsk)
+    f = rns.fbc_apply(ctx.gather(tx_q), ec.fbc_q_to_bsk)
     y_b = mont_mul(sub_mod(tx_b, f, ec.bq), ec.qinv_bsk_mont, ec.bq, ec.bqi)
     return Ciphertext(_bsk_to_q(ctx, y_b))
 

@@ -16,6 +16,11 @@ turning PASTA ciphertexts into BFV ciphertexts ("decomposition").
 
 Packing: PASTA key/state halves live at slots ``[0..T)`` (row 0) and
 ``[N/2..N/2+T)`` (row 1); `mix` is a column swap.
+
+A Transcipher on a ``parallel.limb_shard.LimbView`` (``on_limbs``) holds
+the rank's rows of the BSGS keys and expands the round material only over
+the rank's moduli; its keystream takes a whole or a limb-split encrypted
+key and returns the rank's limbs.
 """
 
 from __future__ import annotations
@@ -101,6 +106,7 @@ class Transcipher:
         # in the key cannot be reused while the entry lives
         self._ks_cache: collections.OrderedDict = collections.OrderedDict()
         self._ks_cache_max = 64
+        self._limb_tcs: Dict[int, tuple] = {}  # id(mesh) -> (mesh, Transcipher)
         self._build_expand_consts()
 
     def _cache_put(self, cache, maxsize, key, value):
@@ -111,9 +117,28 @@ class Transcipher:
 
     def clear_caches(self):
         """Free the device round-material / keystream caches (the round
-        material is ~0.5 GB per block at production N)."""
+        material is ~0.5 GB per block at production N), those of the limb
+        views too."""
         self._pt_cache.clear()
         self._ks_cache.clear()
+        for _, tc in self._limb_tcs.values():
+            tc.clear_caches()
+
+    def on_limbs(self, mesh) -> "Transcipher":
+        """This transcipher on the rank's limbs of ``mesh`` (a
+        ``parallel.mesh.Mesh`` with a "limb" axis): a Transcipher on a
+        ``LimbView``, built once a mesh, with its own caches (a whole and a
+        split keystream never share an entry).  Where the axis does not
+        divide k every rank keeps all limbs, and this is ``self``."""
+        hit = self._limb_tcs.get(id(mesh))
+        if hit is None:
+            from ..parallel import limb_shard
+
+            view = limb_shard.LimbView(self.ctx, mesh)
+            tc = self if not view.split else Transcipher(
+                view, self.rk, self.gks_all, self.use_bsgs, self.n1, self.n2)
+            hit = self._limb_tcs[id(mesh)] = (mesh, tc)  # pins mesh: its id stays unique
+        return hit[1]
 
     def _build_bsgs_keys(self, gks: Dict[int, KSwitchKey]):
         """Precompute the batched BSGS material.
@@ -122,7 +147,8 @@ class Transcipher:
         K'_{j,d} = sigma_j^{-1}(K_{j,d}) precomputed here,
         sum_d sigma_j(fd_d) * K_{j,d} == sigma_j(sum_d fd_d * K'_{j,d}), so
         the hot path permutes the [k+1, N] contraction results instead of the
-        [kd, k+1, N] digit tensors."""
+        [kd, k+1, N] digit tensors.  On a limb view only the rank's target
+        moduli and P of each key are kept: [k'+1, kd, N]."""
         ctx = self.ctx
         dev = ctx.device
 
@@ -132,8 +158,8 @@ class Transcipher:
             k = gks[elt]
             # moduli-major [k+1, kd, N] layout
             return (
-                k.k0[..., inv].transpose(0, 1).contiguous(),
-                k.k1[..., inv].transpose(0, 1).contiguous(),
+                ctx.take_qp(k.k0)[..., inv].transpose(0, 1).contiguous(),
+                ctx.take_qp(k.k1)[..., inv].transpose(0, 1).contiguous(),
                 src,
             )
 
@@ -389,16 +415,16 @@ class Transcipher:
 
         f01 = ntt.ntt_fwd(st.data, ctx.tb_q)  # one call for both components
         f0, f1 = f01[0], f01[1]
-        fd = bfv_eval.hoist_digits(ctx, st.data[1])  # [kd, k+1, N] NTT(qP)
+        fd = bfv_eval.hoist_digits(ctx, st.data[1])  # [kd, k+1, N] NTT(qP), one gather
         fd_t = fd.transpose(-3, -2)  # moduli-major [k+1, kd, N]
 
         # all n1 NTT-domain rotations of f0 at once (row 0 = identity)
         rot_f0 = f0[:, baby_srcs].transpose(0, 1)  # [n1, k, N]
 
-        def contract(fdig_t, k0s, k1s):
+        def contract(fdig_t, k0s, k1s):  # over all kd digits
             t0 = mont_mul(fdig_t[..., 0, :], k0s[..., 0, :], qp, qpi)
             t1 = mont_mul(fdig_t[..., 0, :], k1s[..., 0, :], qp, qpi)
-            for d in range(1, ctx.k):
+            for d in range(1, fdig_t.shape[-2]):
                 t0 = add_mod(t0, mont_mul(fdig_t[..., d, :], k0s[..., d, :], qp, qpi), qp)
                 t1 = add_mod(t1, mont_mul(fdig_t[..., d, :], k1s[..., d, :], qp, qpi), qp)
             return t0, t1
@@ -487,9 +513,10 @@ class Transcipher:
         return torch.stack([c0, c1])
 
     def _keystream_impl(self, key_data, mats_qp, rcs_pt, keys) -> torch.Tensor:
-        """Full 3-round PASTA keystream evaluation on the encrypted key."""
+        """Full 3-round PASTA keystream evaluation on the encrypted key
+        (whole or the view's limbs)."""
         ctx = self.ctx
-        st = Ciphertext(key_data)
+        st = Ciphertext(ctx.take(key_data))
         for r in range(4):
             st = self._matmul(st, self.round_mats(mats_qp, r), keys)
             st = bfv_eval.add_plain(ctx, st, rcs_pt[r])
@@ -584,26 +611,29 @@ class Transcipher:
         sym_ct: [L] or [B, L].  Returns one ciphertext per 128-block; for
         batched input each has data shape [2, B, k, N].
 
-        With ``mesh`` (a ``parallel.mesh.Mesh`` with a "batch" axis) each
-        batch rank finishes its share of the sample batch (padded to a
-        multiple of the axis with ``pad_batch``) and the shares are gathered,
-        so every rank returns the whole result.  Every rank evaluates the
-        keystream with all limbs (F17)."""
+        With ``mesh`` (a ``parallel.mesh.Mesh`` with "batch" and "limb"
+        axes) the keystream is evaluated on the rank's limbs where the limb
+        axis divides k (``on_limbs``), each batch rank finishes its share of
+        the sample batch (padded to a multiple of the axis with
+        ``pad_batch``) on those limbs, and the limbs and then the shares are
+        gathered, so every rank returns the whole result."""
         sym = np.asarray(sym_ct, np.uint64)
         batched = sym.ndim == 2
         sym2 = np.atleast_2d(sym)
         B, L = sym2.shape
         nblocks = math.ceil(L / T)
-        kss = self.keystream_blocks(enc_key, nonce, list(range(nblocks)))
+        tc = self
         if mesh is not None:
             from ..parallel import mesh as hmesh
 
+            tc = self.on_limbs(mesh)
             sym2 = hmesh.local_batch(hmesh.pad_batch(sym2, mesh.shape["batch"])[0], mesh)
+        kss = tc.keystream_blocks(enc_key, nonce, list(range(nblocks)))
         out = []
         for b in range(nblocks):
             chunk = self.ctx.to_device(sym2[:, b * T : min((b + 1) * T, L)])
-            res = self._finish_impl(kss[b].data, chunk)  # [2, B, k, N]
+            res = tc._finish_impl(kss[b].data, chunk)  # [2, B, k, N]
             if mesh is not None:
-                res = hmesh.gather_batch(res, mesh)[:, :B]
+                res = hmesh.gather_batch(tc.ctx.gather(res), mesh)[:, :B]
             out.append(Ciphertext(res if batched else res[:, 0]))
         return out

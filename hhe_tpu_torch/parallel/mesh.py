@@ -10,11 +10,12 @@ here.  Axes, as in the JAX package:
 - ``batch``: the ciphertext/sample batch, pure data parallel: each rank
   transciphers and evaluates its own samples with no communication, and
   ``gather_batch`` returns the whole batch to every rank;
-- ``limb``: the RNS limbs.  The JAX package shards them and XLA inserts the
-  collectives inside every key-switch; here every rank of the axis keeps all
-  limbs (``replicated`` placements), so a ``limb`` axis of size > 1 repeats
-  the work of its ranks with bit-identical results.  A tensor-parallel
-  key-switch is not ported (ROADMAP F17).
+- ``limb``: the RNS limbs.  Where the axis's d ranks divide a tensor's k
+  limbs, rank r holds the r-th contiguous block of k/d (``limb_range``,
+  ``shard_limbs``; ``gather_limbs`` joins them back), as a ``NamedSharding``
+  places them; otherwise every rank keeps all k, as the JAX package does.
+  Evaluating on a rank's limbs takes ``limb_shard.LimbView``, which does
+  the collectives XLA inserts inside every key-switch and base conversion.
 
 ``make_mesh`` is ``jax.make_mesh``'s counterpart for any axis names (the
 four-step NTT takes a one-axis ``("poly",)`` mesh).  A mesh spans every rank
@@ -125,8 +126,10 @@ def make_hhe_mesh(
 def batch_sharding(mesh: Mesh):
     """Placements of a batched ciphertext [size, B, k, N] over the mesh axes
     (``torch.distributed.tensor`` placements, one per axis): samples split
-    over ``batch``, limbs whole on every ``limb`` rank (F17)."""
-    return tuple(Shard(1) if a == "batch" else Replicate() for a in mesh.axis_names)
+    over ``batch``, limbs over ``limb`` (where the axis divides k;
+    ``shard_ciphertext_batch`` keeps them whole otherwise, as the JAX
+    package's ``P(None, "batch", "limb", None)`` placement does)."""
+    return tuple(Shard(1) if a == "batch" else Shard(2) for a in mesh.axis_names)
 
 
 def replicated(mesh: Mesh):
@@ -146,13 +149,49 @@ def local_batch(arr, mesh: Mesh, axis: int = 0):
     return arr[tuple(idx)]
 
 
+def limb_range(k: int, mesh: Mesh) -> range:
+    """The limbs of a k-limb tensor that this rank holds: the r-th of d
+    contiguous blocks when the mesh's ``limb`` axis (d ranks) divides k, all
+    k otherwise (``hhe_tpu.parallel.mesh.shard_ciphertext_batch``'s rule)."""
+    d = mesh.shape["limb"]
+    if k % d:
+        return range(k)
+    r, w = mesh.rank("limb"), k // d
+    return range(r * w, (r + 1) * w)
+
+
+def _take_limbs(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    limbs = limb_range(data.shape[-2], mesh)
+    return data[..., limbs.start : limbs.stop, :]
+
+
 def shard_ciphertext_batch(ct: bfv.Ciphertext, mesh: Mesh) -> bfv.Ciphertext:
-    """This rank's samples of a batched ciphertext [size, B, k, N], on the
-    mesh's device, with every limb (F17)."""
+    """This rank's block of a batched ciphertext [size, B, k, N] on the
+    mesh's device: its samples (``local_batch``) and its limbs
+    (``limb_range``: all k where the ``limb`` axis does not divide them)."""
     data = ct.data
     if data.dim() != 4:
         raise ValueError(f"expected a batched ciphertext [size, B, k, N], got {tuple(data.shape)}")
-    return bfv.Ciphertext(local_batch(data, mesh, axis=1).to(mesh.device).contiguous())
+    local = _take_limbs(local_batch(data, mesh, axis=1), mesh)
+    return bfv.Ciphertext(local.to(mesh.device).contiguous())
+
+
+def shard_limbs(ct: bfv.Ciphertext, mesh: Mesh) -> bfv.Ciphertext:
+    """This rank's limbs (``limb_range``) of an unbatched ciphertext
+    [size, k, N], such as the encrypted PASTA key: the placement
+    ``P(None, "limb", None)`` of the JAX package's sharded keystream."""
+    if ct.data.dim() != 3:
+        raise ValueError(f"expected a ciphertext [size, k, N], got {tuple(ct.data.shape)}")
+    return bfv.Ciphertext(_take_limbs(ct.data, mesh).to(mesh.device).contiguous())
+
+
+def gather_limbs(x: torch.Tensor, mesh: Mesh, axis: int = -2) -> torch.Tensor:
+    """Every limb on every rank: each ``limb`` rank's block of ``x`` along
+    ``axis`` (a block ``limb_range`` split off), concatenated in rank
+    order.  Only for split tensors: a whole one would come back d times."""
+    parts = [torch.empty_like(x) for _ in range(mesh.shape["limb"])]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group("limb"))
+    return torch.cat(parts, dim=axis)
 
 
 def gather_batch(x: torch.Tensor, mesh: Mesh, axis: int = 1) -> torch.Tensor:

@@ -143,8 +143,10 @@ def csp_decompose(
     """Transcipher + postprocess (mask tail, flatten) for a batch [B, L].
     Returns batched ct [2, B, k, N] holding each sample in slots [0, L).
 
-    With ``mesh`` the sample batch is split over the mesh's batch axis
-    (``Transcipher.decompose``); every rank returns the whole result."""
+    With ``mesh`` the keystream is evaluated on the rank's limbs (where the
+    mesh's limb axis divides k) and the sample batch is split over its
+    batch axis (``Transcipher.decompose``); every rank returns the whole
+    result."""
     ctx = stack.ctx
     sym_data = np.atleast_2d(np.asarray(sym_data, np.uint64))
     L = sym_data.shape[1]
@@ -158,11 +160,17 @@ def csp_decompose(
 
 
 def csp_eval_1fc(
-    stack: HHEStack, data_ct: Ciphertext, weight_ct: Ciphertext, do_sum: bool
+    stack: HHEStack, data_ct: Ciphertext, weight_ct: Ciphertext, do_sum: bool, mesh=None
 ) -> Ciphertext:
     """Encrypted FC: data * weight (ct x ct), relinearize, optional
-    log-depth rotate-reduce sum."""
-    ctx = stack.ctx
+    log-depth rotate-reduce sum.
+
+    With ``mesh`` it runs on the rank's limbs (``Transcipher.on_limbs``'s
+    view): ``data_ct`` is the rank's block (``mesh.shard_ciphertext_batch``),
+    ``weight_ct`` whole or the rank's limbs, and so is the result, which
+    ``gather_limbs`` and ``gather_batch`` make whole; the analyst decrypts
+    only whole ciphertexts."""
+    ctx = stack.ctx if mesh is None else stack.tc.on_limbs(mesh).ctx
     prod = bfv_eval.relinearize(ctx, bfv_eval.multiply(ctx, data_ct, weight_ct), stack.rk)
     if do_sum:
         prod = helin.encrypted_vec_sum_log(ctx, prod, stack.gks)

@@ -23,7 +23,8 @@ assert {"hhe_tpu_torch.ops.heconv", "hhe_tpu_torch.workloads.qat",
         "hhe_tpu_torch.workloads.he_conv", "hhe_tpu_torch.models.pocketnn",
         "hhe_tpu_torch.workloads.training",
         "hhe_tpu_torch.workloads.float_baseline", "hhe_tpu_torch.parallel.mesh",
-        "hhe_tpu_torch.parallel.ntt_shard", "hhe_tpu_torch.native"} <= set(names), names
+        "hhe_tpu_torch.parallel.ntt_shard", "hhe_tpu_torch.parallel.limb_shard",
+        "hhe_tpu_torch.native"} <= set(names), names
 assert not any(m == "hhe_tpu" or m.startswith("hhe_tpu.") for m in sys.modules), "hhe_tpu imported"
 import numpy as np, torch
 from hhe_tpu_torch.ops import ntt, primes
@@ -49,7 +50,9 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|hhe_tpu\b(?!_torch))", re.M)
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("torch_*.py"))
+    + ["chip_smoke.py"],
 )
 def test_no_jax_or_hhe_tpu_imports(path):
     src = (ROOT / path).read_text()

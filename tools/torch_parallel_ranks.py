@@ -16,7 +16,19 @@ R defaults to every card.  Each rank, on card ``rank``:
 3. on the ECG stack (N=16384, 13 limbs, device keygen with seed 1, B=64)
    ``csp_decompose(mesh=)`` over a ("batch": R, "limb": 1) mesh equal to the
    unsplit ``csp_decompose`` on the same rank, bit for bit, each with its
-   keystream evaluated afresh, and their walls.
+   keystream evaluated afresh, and their walls;
+4. the limb split on the MNIST 2FC chain (N=16384, 16 limbs: the ECG
+   chain's 13 is prime and cannot split), over ("batch": R/2, "limb": 2)
+   and ("batch": 1, "limb": R): the keystream of one block on the key
+   placed by ``shard_limbs``, ``csp_decompose(mesh=)`` of B=64 samples and
+   ``csp_eval_1fc(mesh=)`` with the log-depth sum on the batch placed by
+   ``shard_ciphertext_batch``, each gathered and equal to the unsplit run
+   on the same rank; per mesh the limbs and key rows the rank holds, its
+   key bytes against the whole set's, the all-gathers a keystream block
+   makes, and the keystream, decompose and FC times split and unsplit
+   (the least of three; the keystream and the decompose with the keystream
+   and its round material evaluated afresh).  A limb axis that does not
+   divide 16 must keep every limb whole.
 
 The K1/K2 launches of each rank's checked run are counted.  The parent
 builds the kernels before it starts the ranks, and prints one JSON line:
@@ -39,6 +51,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NTTS = ((16384, 13), (65536, 3))
 B = 64
+LIMB_CHAIN = 16  # MNIST 2FC's data limbs at N=16384, even
+REPS = 3
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -138,12 +152,107 @@ def rank_main(rank: int, world: int, port: int, out_path: str):
             single_fwd_ms=cuda_ms(lambda: ntt.ntt_fwd(whole_x, tb)),
             single_inv_ms=cuda_ms(lambda: ntt.ntt_inv(whole_x, tb)),
         )
+    del stack, tc, whole, split
+    torch.cuda.empty_cache()
+    limb_case(world, res, checks)
+
     dist.barrier()
     dist.destroy_process_group()
     with open(out_path, "w") as f:
         json.dump(res, f)
     if not all(checks.values()):
         raise SystemExit(f"rank {rank}: a check failed: {checks}")
+
+
+def limb_meshes(world: int):
+    """(batch, limb) shapes of the limb case: a two-way and an R-way split."""
+    shapes = [(world // 2, 2)] if world % 2 == 0 else []
+    return shapes + [(1, world)] if (1, world) not in shapes else shapes
+
+
+def limb_case(world: int, res: dict, checks: dict):
+    """Step 4 of the module docstring, on this rank."""
+    import numpy as np
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, helin, ntt_kernels, pasta, transcipher
+    from hhe_tpu_torch.parallel import mesh as hmesh
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    stack = wk.build_stack(bfv.BFVParams(n=16384, data_limbs=LIMB_CHAIN, seed=2), input_len=128,
+                           device_keygen=True, seed=2)
+    ctx, tc = stack.ctx, stack.tc
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 64, (B, transcipher.T))
+    w = rng.integers(-3, 4, transcipher.T)
+    key = pasta.get_fixed_symmetric_key()
+    nonce = 81_000
+    sym = pasta.Pasta(key, ctx.t).encrypt(x.astype(np.uint64), nonce=nonce)
+    enc_key = tc.encrypt_key(stack.pk, key)
+    wct = bfv.Ciphertext(helin.encrypt_weight(ctx, stack.pk, w[None, :])[0].data[:, None])
+    keyset = [stack.rk, *stack.gks.values()]
+
+    def bsgs(t):
+        return sum(k.nbytes for k in (t.baby_k0, t.baby_k1, t.giant_k0, t.giant_k1))
+
+    def keystream(t, k):
+        t.clear_caches()
+        return t.keystream_ct(k, nonce, 0)
+
+    def decompose(k, mesh=None):
+        tc.clear_caches()  # the limb views' too
+        return wk.csp_decompose(stack, k, sym, nonce=nonce, mesh=mesh)
+
+    def least(fn):
+        return min(timed(fn)[1] for _ in range(REPS))
+
+    ks = keystream(tc, enc_key)
+    dec = wk.csp_decompose(stack, enc_key, sym, nonce=nonce)
+    fc = wk.csp_eval_1fc(stack, dec, wct, do_sum=True)
+    sums = ctx.decode_batch(ctx.decrypt_batch(stack.sk, fc))[:, 0].astype(np.int64)
+    checks["limb_unsplit_sums"] = bool(np.array_equal(sums, (x * w).sum(1) % ctx.t))
+    out = {"limbs": LIMB_CHAIN, "key_bytes_whole": sum(k.k0.nbytes + k.k1.nbytes for k in keyset)
+           + bsgs(tc), "keystream_unsplit_s": least(lambda: keystream(tc, enc_key)),
+           "decompose_unsplit_s": least(lambda: decompose(enc_key)),
+           "csp_eval_1fc_sum_unsplit_s": least(lambda: wk.csp_eval_1fc(stack, dec, wct, do_sum=True)),
+           "meshes": {}}
+    for shape in limb_meshes(world):
+        mesh = hmesh.make_hhe_mesh(limb_shards=shape[1])
+        tag = f"{shape[0]}x{shape[1]}"
+        tcl = tc.on_limbs(mesh)
+        view = tcl.ctx
+        d = shape[1]
+        r = mesh.rank("limb")
+        want = range(r * LIMB_CHAIN // d, (r + 1) * LIMB_CHAIN // d) if LIMB_CHAIN % d == 0 \
+            else range(LIMB_CHAIN)
+        checks[f"limb_{tag}_split"] = bool(view.split == (LIMB_CHAIN % d == 0) and view.limbs == want)
+        key_l = hmesh.shard_limbs(enc_key, mesh)
+        ntt_kernels.reset_launches()
+        g0 = view.all_gathers
+        ks_l = tcl.keystream_ct(key_l, nonce, 0)
+        gathers = view.all_gathers - g0
+        dec_l = wk.csp_decompose(stack, key_l, sym, nonce=nonce, mesh=mesh)
+        fc_l = wk.csp_eval_1fc(stack, hmesh.shard_ciphertext_batch(dec_l, mesh), wct, do_sum=True,
+                               mesh=mesh)
+        fc_whole = hmesh.gather_batch(hmesh.gather_limbs(fc_l.data, mesh), mesh)
+        checks[f"limb_{tag}_keystream"] = bool(torch.equal(hmesh.gather_limbs(ks_l.data, mesh), ks.data))
+        checks[f"limb_{tag}_decompose"] = bool(torch.equal(dec_l.data, dec.data))
+        checks[f"limb_{tag}_fc"] = bool(torch.equal(fc_whole, fc.data))
+        ct_l = hmesh.shard_ciphertext_batch(dec, mesh)
+        out["meshes"][tag] = {
+            "limbs": [view.limbs.start, view.limbs.stop],
+            "rk_rows": list(view.take_key(stack.rk).k0.shape),
+            "baby_rows": list(tcl.baby_k0.shape),
+            "key_bytes_rank": view.key_bytes(keyset) + bsgs(tcl),
+            "all_gathers_per_block": gathers,
+            "launches": dict(ntt_kernels.LAUNCHES),
+            "keystream_split_s": least(lambda: keystream(tcl, key_l)),
+            "decompose_split_s": least(lambda: decompose(key_l, mesh)),
+            "csp_eval_1fc_sum_split_s": least(lambda: wk.csp_eval_1fc(stack, ct_l, wct, do_sum=True,
+                                                                      mesh=mesh)),
+        }
+        tc.clear_caches()
+    res["limb"] = out
 
 
 def main():
