@@ -6,20 +6,25 @@ Phases (any failure propagates and the exit code is nonzero):
 
 0. device: the card's name and power limit, torch's CUDA version, nvcc, and
    whether ``grpc`` and ``google.protobuf`` import;
-1. build: compile the NTT kernels from ``hhe_tpu_torch/csrc``; a kernel
+1. build: compile the kernels from ``hhe_tpu_torch/csrc`` (``ntt.cu``: the
+   NTT, K1 and K2; ``modarith.cu``: the Montgomery product K3 and
+   multiply-accumulate K4), one nvcc each, started together; a kernel
    instance that spills registers fails;
-2. kernels: each kernel against its plain PyTorch version (``torch.equal``)
-   for 30-bit (lazy) and 31-bit (eager) moduli and t at every
-   N = 2^5 ... 2^16 (each a kernel instance of its own; above 2^14 the row
-   is cut into 64 KB parts and the top passes run too), with fewer 64 KB
+2. kernels: each NTT kernel against its plain PyTorch version
+   (``torch.equal``) for 30-bit (lazy) and 31-bit (eager) moduli and t at
+   every N = 2^5 ... 2^16 (each a kernel instance of its own; above 2^14 the
+   row is cut into 64 KB parts and the top passes run too), with fewer 64 KB
    tiles than the card has SMs and with at least four tiles a block, and
-   inv(fwd(x)) == x;
+   inv(fwd(x)) == x; K3 (eager and lazy) and K4 against theirs at the shapes
+   and broadcast patterns of their sites at N = 16384 / 13 limbs and
+   N = 65536 / 17 limbs, on operands holding 0, q - 1 and lazy [0, 2q)
+   values (``check_mont_sites``);
 3. ECG path (the main path): ``build_stack`` at the production BFV
    parameters (N=16384, 13 x 30-bit limbs, device keygen), then
    ``hhe_ecg_inference`` on B=64 samples.  Predictions must equal the
    plaintext model's, one decomposed sample must decrypt to its input with
-   >= 40 bits of noise budget, and both kernels must have launched during
-   the run.  Then the timings: decompose at B=64 with a fresh nonce per rep
+   >= 40 bits of noise budget, and K1-K4 must have launched during the
+   run.  Then the timings: decompose at B=64 with a fresh nonce per rep
    (PASTA encryption outside the timed region), one keystream block, the FC
    product, the batched decrypt; and one keystream block under
    ``torch.profiler`` (device busy time by kernel).  On the same stack:
@@ -59,7 +64,7 @@ Phases (any failure propagates and the exit code is nonzero):
    ``evaluateModelFromFile`` (then, for L=300, ``evaluateModel`` with the
    checkpoint split across repeated ``HHEDecomp`` entries) returns results
    that must decrypt to x @ w exactly, with predictions (x @ w > 0); the
-   three secret keys must differ and both kernels must launch; per-party ms
+   three secret keys must differ and K1-K4 must launch; per-party ms
    and per-edge MB, the decompose wall, evaluation ms a ciphertext, the
    key set's publish time, one result's noise budget, peak memory;
    4c. the CLI: ``python -m hhe_tpu_torch.parties.cli`` csp, analyst and
@@ -105,16 +110,20 @@ Phases (any failure propagates and the exit code is nonzero):
    LARGE_KS_LIMBS limbs, decrypting to the plain PASTA keystream, its
    budget after each round, its time and its profile;
 7. kernels at the paths' shapes: every shape each path of phases 3-6 gave
-   each kernel, on random residues, against the plain version
-   (``torch.equal``; above N = 16384 each launch alone too), timed per call
-   from Python (``ms``) and on the device alone (``device_ms``, a CUDA graph
-   of launches) on one operand, and again cycling through copies that miss
-   the L2 (``ms_cold``, ``device_ms_cold``), each beside its bound;
+   each NTT kernel, and every operand layout the ECG path and the MONT_TOP
+   most-called layouts each other path gave K3 and K4, on random residues,
+   against the plain version (``torch.equal``; above N = 16384 each NTT
+   launch alone too), timed per call from Python (``ms``) and on the device
+   alone (``device_ms``, a CUDA graph of launches) on one operand, and again
+   cycling through copies that miss the L2 (``ms_cold``,
+   ``device_ms_cold``), each beside its bound and (K3, K4) the plain
+   version's ms;
 8. one JSON line of every phase's numbers, the card's line, one JSON line
    with every kernel's launches per path, error, time, plain time and bound,
    per shape and summed per path, then the device line last.
 
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after;
+every path of phases 3-6 must launch K1-K4 (the top passes where N > 16384).
 Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 """
 
@@ -159,7 +168,8 @@ ECG_FULL_CAP = 2048
 FMNIST_LIMBS = 13  # the production chain holds the FashionMNIST FC
 MNIST_B = 4  # images per 2FC batch, the JAX package's
 MNIST_LIMBS = 16  # the 2FC path's chain: fc1, rotate-reduce and square need ~70 bits
-# hidden rows per 2FC pass: 32 peaks at ~43 GiB, 64 runs out of the card's 80
+# hidden rows per 2FC pass; the phase also records the peak memory at twice
+# as many
 MNIST_ROW_CHUNK = 32
 # the encrypted HCNN (he_mnist_conv_inference): the JAX package's own
 # parameters, N=16384 with 13 limbs and the 47-bit conv_plain_t; surrogate
@@ -221,6 +231,24 @@ def wall_s(fn) -> float:
     return timed(fn)[1]
 
 
+# the kernels every path of phases 3-6 must launch: K1, K2 (the NTT), K3 and
+# K4 (the Montgomery product and multiply-accumulate)
+PATH_KERNELS = ("ntt_fwd", "ntt_inv", "mont_mul", "mont_mac")
+
+
+def reset_launches():
+    from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
+
+    ntt_kernels.reset_launches()
+    mod_kernels.reset_launches()
+
+
+def launch_counts() -> dict:
+    from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
+
+    return {**ntt_kernels.LAUNCHES, **mod_kernels.LAUNCHES}
+
+
 def phase_device():
     import torch
 
@@ -244,20 +272,41 @@ def phase_device():
 
 
 def phase_build():
-    """Compile the kernels and show ptxas' registers and spills per kernel;
-    a kernel that spills fails the build phase."""
-    from hhe_tpu_torch.ops import ntt_kernels
+    """Compile the kernels, ``csrc/ntt.cu`` (K1, K2) and ``csrc/modarith.cu``
+    (K3, K4) with one nvcc each, started together, and show ptxas' registers
+    and spills per kernel; a kernel that spills fails the build phase."""
+    import threading
+
+    from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
     t0 = time.perf_counter()
-    lib = ntt_kernels.build()
+    failed = []
+
+    def build(mod):
+        try:
+            mod.build()
+        except Exception as e:  # raised below, on the main thread
+            failed.append(e)
+
+    threads = [threading.Thread(target=build, args=(mod,)) for mod in (ntt_kernels, mod_kernels)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failed:
+        raise failed[0]
     ntt_kernels._library()
-    nvcc_s = ntt_kernels.BUILD_LOG.get("seconds")
-    log(f"build: {lib} in {time.perf_counter() - t0:.2f} s "
-        + (f"(nvcc {nvcc_s:.2f} s)" if nvcc_s is not None else "(already built)"))
-    report = ntt_kernels.ptxas_report(ntt_kernels.BUILD_LOG.get("compiler_output", ""))
-    for name, info in report.items():
-        log(f"  ptxas: {name}: {info['registers']}")
-    spills = [name for name, info in report.items() if info["spill_bytes"]]
+    mod_kernels._library()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    spills = []
+    for mod in (ntt_kernels, mod_kernels):
+        nvcc_s = mod.BUILD_LOG.get("seconds")
+        log(f"  {mod.BUILD_LOG['library']} "
+            + (f"(nvcc {nvcc_s:.2f} s)" if nvcc_s is not None else "(already built)"))
+        report = ntt_kernels.ptxas_report(mod.BUILD_LOG.get("compiler_output", ""))
+        for name, info in report.items():
+            log(f"  ptxas: {name}: {info['registers']}")
+        spills += [name for name, info in report.items() if info["spill_bytes"]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     log("  ptxas: no kernel spills")
@@ -304,30 +353,187 @@ def phase_kernels():
     log(f"kernels: launches {ntt_kernels.LAUNCHES}")
     if min(ntt_kernels.LAUNCHES.values()) == 0:
         raise AssertionError(f"a kernel did not launch in the kernel phase: {ntt_kernels.LAUNCHES}")
+    check_mont_sites()
+
+
+# (N, data limbs) of phase 2's K3 / K4 checks: the production chain and the
+# large preset's keystream chain
+MONT_CHECKS = ((16384, 13), (65536, LARGE_KS_LIMBS))
+# the plain Montgomery versions run over leading slices of at most this many
+# products (their int64 temporaries take ~50 bytes a product)
+PLAIN_SLICE_WORDS = 1 << 27
+
+
+def mont_residues(shape, q, gen, top=1):
+    """int32 residues below top * q (q broadcasts against `shape`), with 0
+    and top * q - 1 planted."""
+    import torch
+
+    lim = (q.to(torch.int64) * top).expand(shape).reshape(-1)
+    v = torch.randint(0, 1 << 62, lim.shape, generator=gen, device=q.device) % lim
+    v[::7] = 0
+    v[3::11] = lim[3::11] - 1
+    return v.reshape(shape).to(torch.int32)
+
+
+def mont_columns(mods, dev, nd=2):
+    """q and qinv_neg of `mods` as int64 columns [k, 1, ...] of `nd` dimensions."""
+    import torch
+
+    from hhe_tpu_torch.ops import modular
+
+    shape = (len(mods),) + (1,) * (nd - 1)
+    qi = [int(modular.mont_constants(m)[0]) for m in mods]
+    return (torch.tensor([int(m) for m in mods], dtype=torch.int64, device=dev).reshape(shape),
+            torch.tensor(qi, dtype=torch.int64, device=dev).reshape(shape))
+
+
+def mont_call(name, a, b, q, qi, dim):
+    """K3 / K4 through ``modular`` (CUDA tensors: the kernels); `name` is a
+    wrapper's: ``mont_mul``, ``mont_mul_lazy`` or ``mont_mac``."""
+    from hhe_tpu_torch.ops import modular
+
+    if name == "mont_mac":
+        return modular.mont_mac(a, b, q, qi, dim)
+    return getattr(modular, name)(a, b, q, qi)
+
+
+def mont_plain(name, a, b, q, qi, dim):
+    """The plain version of `name`, over slices of the broadcast shape's
+    leading axis when the products are many (each output word depends on
+    its own products only, so the slices concatenate to the whole)."""
+    import torch
+
+    from hhe_tpu_torch.ops import modular
+
+    fn = {"mont_mul": modular.mont_mul_plain, "mont_mul_lazy": modular.mont_mul_lazy_plain,
+          "mont_mac": lambda *x: modular.mont_mac_plain(*x, dim)}[name]
+    ops = (a, b, q, qi)
+    full = torch.broadcast_shapes(*(x.shape for x in ops if isinstance(x, torch.Tensor)))
+    nd, words = len(full), int(np.prod(full))
+    if words <= PLAIN_SLICE_WORDS or full[0] == 1 or (dim is not None and dim % nd == 0):
+        return fn(*ops)
+    step = max(1, full[0] * PLAIN_SLICE_WORDS // words)
+
+    def cut(x, i):
+        whole = not isinstance(x, torch.Tensor) or x.ndim < nd or x.shape[0] == 1
+        return x if whole else x[i : i + step]
+
+    return torch.cat([fn(*(cut(x, i) for x in ops)) for i in range(0, full[0], step)])
+
+
+def check_mont_sites():
+    """Phase 2's K3 / K4 checks, at N = 16384 / 13 limbs and N = 65536 /
+    LARGE_KS_LIMBS limbs (30-bit q and P, 31-bit Bsk moduli): each kernel
+    against its plain version (``torch.equal``) at the shapes and broadcast
+    patterns of its sites -- K4 at the key-switch products
+    (``hoisted_ks_products``, a ``keyswitch`` digit chunk against a row slice
+    of the key), the BSGS key contraction (digits as a transposed view),
+    the BSGS plaintext sums (one over a [:, 1:] view) and the base
+    conversion (``fbc_from_digits``); K3, eager and lazy, at ``mod_down``'s
+    and ``multiply_plain``'s shapes on lazy inputs in [0, 2q) and with a
+    Python-int b (``from_mont``); one K3 and one K4 site again on rows that
+    are not 16-byte aligned (the kernel's word path; the others take its
+    vector path).  Every operand holds 0 and its bound - 1."""
+    import torch
+
+    from hhe_tpu_torch.ops import mod_kernels, primes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mod_kernels.reset_launches()
+    for n, k in MONT_CHECKS:
+        kd, kp = k, k + 1
+        qp_mods = primes.ntt_primes(n, 30, kp)
+        q, qi = mont_columns(qp_mods[:k], dev)
+        qp, qpi = mont_columns(qp_mods, dev)
+        bsk, bski = mont_columns(primes.ntt_primes(n, 31, k + 2), dev)
+
+        def r(shape, qq, top=1):
+            return mont_residues(shape, qq, gen, top)
+
+        key = r((kd, kp, n), qp)
+        lazy_in, wide_in = r((2, k, n), q, 2), r((2, 64 if n <= 16384 else 4, k, n), q, 2)
+        col, plain_pt = r((k, 1), q), r((k, n), q)
+        sites = {  # name: (wrapper, a, b, q, qinv_neg, dim)
+            "mod_down": ("mont_mul", lazy_in, col, q, qi, None),
+            "mod_down lazy": ("mont_mul_lazy", lazy_in, col, q, qi, None),
+            "multiply_plain": ("mont_mul", wide_in, plain_pt, q, qi, None),
+            "multiply_plain lazy": ("mont_mul_lazy", wide_in, plain_pt, q, qi, None),
+            "from_mont": ("mont_mul", lazy_in, 1, q, qi, None),
+            "hoisted_ks_products": ("mont_mac", r((2, kd, kp, n), qp), key, qp, qpi, -3),
+            "keyswitch digit_chunk": ("mont_mac", r((4, 4, kp, n), qp), key[4:8], qp, qpi, -3),
+            "bsgs key contraction": ("mont_mac", key.transpose(-3, -2),
+                                     r((31, kp, kd, n), qp[:, None]), qp[:, None], qpi[:, None], -2),
+            "bsgs q sum": ("mont_mac", r((1, 32, k, n), q), r((4, 32, k, n), q), q, qi, 1),
+            "bsgs qp sum": ("mont_mac", r((1, 31, kp, n), qp), r((4, 32, kp, n), qp)[:, 1:],
+                            qp, qpi, 1),
+            "fbc_from_digits": ("mont_mac", r((3, k, n), q)[..., None, :],
+                                r((k, k + 2), bsk.reshape(1, -1))[:, :, None], bsk, bski, -3),
+            # rows that start off the 16-byte grid take the kernel's word path
+            "mod_down, unaligned": ("mont_mul", r((2, k, n + 1), q, 2)[..., 1:], col, q, qi, None),
+            "hoisted_ks_products, unaligned": ("mont_mac", r((2, kd, kp, n + 1), qp)[..., 1:],
+                                               key, qp, qpi, -3),
+        }
+        for site, (name, a, b, qq, qqi, dim) in sites.items():
+            got = mont_call(name, a, b, qq, qqi, dim)
+            want = mont_plain(name, a, b, qq, qqi, dim)
+            ok = torch.equal(got, want)
+            log(f"kernels {name} n={n} k={k} {site} {list(got.shape)}: {'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"{name} differs from its plain version at {site}, n={n}")
+            del got, want
+        del sites, key, lazy_in, wide_in
+    log(f"kernels: launches {mod_kernels.LAUNCHES}")
+    if min(mod_kernels.LAUNCHES.values()) == 0:
+        raise AssertionError(f"a kernel did not launch in the kernel phase: {mod_kernels.LAUNCHES}")
+
+
+# the moduli columns (q, qinv_neg) first seen with each K3 / K4 layout, so
+# that phase 7 can remake the layout's operands
+MONT_MODULI = {}
+
+
+def mont_layout(x):
+    """A K3 / K4 operand as phase 7 remakes it: a Python int, or the
+    tensor's (shape, strides, dtype)."""
+    if isinstance(x, (int, np.integer)):
+        return int(x)
+    return tuple(x.shape), tuple(x.stride()), str(x.dtype).split(".")[-1]
 
 
 class ShapeRecorder:
-    """Records the (rows, k, n) of every kernel call, without touching the
-    wrappers or their launch counts."""
+    """Records the (shape, moduli) of every K1 / K2 call (``calls["ntt_fwd"]``,
+    ``calls["ntt_inv"]``) and the operand layout of every K3 / K4 call
+    (``calls["mont"]``: (wrapper, dim, a, b, q, qinv_neg) layouts), without
+    touching the wrappers or their launch counts."""
 
     def __init__(self):
-        from hhe_tpu_torch.ops import ntt_kernels
+        from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
-        self.mod = ntt_kernels
-        self.orig = {name: getattr(ntt_kernels, name) for name in ("ntt_fwd", "ntt_inv")}
-        self.calls = {name: collections.Counter() for name in self.orig}
+        self.orig = [(ntt_kernels, name, getattr(ntt_kernels, name)) for name in ("ntt_fwd", "ntt_inv")]
+        self.orig += [(mod_kernels, name, getattr(mod_kernels, name))
+                      for name in ("mont_mul", "mont_mul_lazy", "mont_mac")]
+        self.calls = {name: collections.Counter() for name in ("ntt_fwd", "ntt_inv", "mont")}
 
     def __enter__(self):
-        for name, fn in self.orig.items():
-            def rec(x, tb, _fn=fn, _name=name):
-                self.calls[_name][(tuple(x.shape), tb.moduli)] += 1
-                return _fn(x, tb)
-            setattr(self.mod, name, rec)
+        for mod, name, fn in self.orig:
+            if name.startswith("ntt"):
+                def rec(x, tb, _fn=fn, _name=name):
+                    self.calls[_name][(tuple(x.shape), tb.moduli)] += 1
+                    return _fn(x, tb)
+            else:
+                def rec(a, b, q, qi, *dim, _fn=fn, _name=name):
+                    key = (_name, dim[0] if dim else None, *map(mont_layout, (a, b, q, qi)))
+                    MONT_MODULI.setdefault(key, (q, qi))
+                    self.calls["mont"][key] += 1
+                    return _fn(a, b, q, qi, *dim)
+            setattr(mod, name, rec)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.mod, name, fn)
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
 
 
 def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
@@ -604,11 +810,162 @@ def kernel_rows(launches, calls):
     return rows
 
 
+# (kernel, what it stands for): K3 and K4 are not TPU kernels; the JAX package
+# gets them as XLA fusions of these functions
+MONT_KERNELS = (
+    ("mont_mul", "hhe_tpu/ops/modular.py:79 (XLA fusion of mont_mul / mont_mul_lazy :94)"),
+    ("mont_mac", "hhe_tpu/ops/modular.py:121 (XLA fusion of tree_add_mod(mont_mul(...)))"),
+)
+MONT_TOP = 10  # layouts checked per path besides the ECG path's (all of those)
+
+
+def mont_bound(p, a, b, q, qi):
+    """Least time on the card (ms) for one K3 / K4 launch of plan `p`: each
+    tensor operand's distinct words read once and the output written once
+    at the HBM rate, or three 32-bit multiplies a product at the int32
+    multiply rate; and which of the two it is."""
+    out = int(np.prod(p.shape))
+    nbytes = out * a.element_size()
+    for x in (a, b, q, qi):
+        if hasattr(x, "stride"):
+            nbytes += x.element_size() * int(np.prod([n for n, st in zip(x.shape, x.stride()) if st]))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * out * p.terms / INT32_MUL_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mont_entry(key, calls, gen):
+    """Phase 7 for one K3 / K4 layout `key` a path gave the kernels: its
+    operands remade (random residues below the smallest modulus, through the
+    recorded strides, so broadcast operands stay unmaterialised), the kernel
+    against the plain version (``torch.equal``), timed as ``timings`` does
+    (the ``_cold`` keys cycle through copies of a and b), the plain
+    version's ms, and the bound.  Returns (entry, max abs error)."""
+    import torch
+
+    from hhe_tpu_torch.ops import mod_kernels
+
+    name, dim, la, lb, _, _ = key
+    q, qi = MONT_MODULI[key]
+    qmin = int(q.min()) if isinstance(q, torch.Tensor) else int(q)
+
+    def operand(lay):
+        if isinstance(lay, int):
+            return lay
+        shape, stride, dtype = lay
+        extent = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+        base = torch.randint(0, qmin, (extent,), generator=gen, device="cuda",
+                             dtype=getattr(torch, dtype))
+        return base.as_strided(shape, stride)
+
+    a, b = operand(la), operand(lb)
+    got = mont_call(name, a, b, q, qi, dim)
+    want = mont_plain(name, a, b, q, qi, dim)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version at {key}")
+    del got, want
+    p = mod_kernels.plan(a, b, q, qi, dim)
+    b_ms, b_by = mont_bound(p, a, b, q, qi)
+    nbytes = sum(x.element_size() * x.numel() for x in (a, b) if isinstance(x, torch.Tensor))
+    copies = max(1, min(20, -(-2 * L2_BYTES // max(1, nbytes))))
+    pairs = [(a, b)] + [(operand(la), operand(lb)) for _ in range(copies - 1)]
+    hot = lambda: mont_call(name, a, b, q, qi, dim)
+    cold = rotating([lambda x=x, y=y: mont_call(name, x, y, q, qi, dim) for x, y in pairs])
+    entry = {
+        "kernel": "mont_mac" if name == "mont_mac" else "mont_mul", "wrapper": name,
+        "a": [list(la[0]), la[2]] if not isinstance(la, int) else la,
+        "b": [list(lb[0]), lb[2]] if not isinstance(lb, int) else lb,
+        "dim": dim, "out": list(p.shape), "terms": p.terms, "calls": calls,
+        "bound_ms": b_ms, "bound_by": b_by, **timings(hot, cold, b_ms),
+        "plain_ms": cuda_ms(lambda: mont_plain(name, a, b, q, qi, dim), 2),
+    }
+    return entry, err
+
+
+def mont_rows(launches, calls):
+    """Phase 7 for K3 and K4: every layout the ECG path gave them and the
+    MONT_TOP most-called layouts of every other path in `calls`, checked and
+    timed by ``mont_entry`` (once a layout: a later path reuses the entry);
+    one row per kernel, its headline at the ECG path's layout with the most
+    bound time (calls x bound), ``paths`` summing calls x time over the
+    checked layouts of each path."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checked, per, errs = {}, {name: [] for name, _ in MONT_KERNELS}, dict.fromkeys(("mont_mul", "mont_mac"), 0)
+    for path, path_calls in calls.items():
+        mont = path_calls["mont"]
+        keys = mont.items() if path == "ecg" else mont.most_common(MONT_TOP)
+        for key, cnt in keys:
+            if key not in checked:
+                checked[key] = mont_entry(key, cnt, gen)
+            e, err = checked[key]
+            e = dict(e, path=path, calls=cnt)
+            per[e["kernel"]].append(e)
+            errs[e["kernel"]] = max(errs[e["kernel"]], err)
+            log(f"  {path} {e['wrapper']} a={e['a']} b={e['b']} dim={e['dim']} -> {e['out']} "
+                f"x{cnt}: {e['ms']:.4f} ms a call ({e['ms_cold']:.4f} cold), {e['device_ms']:.4f} "
+                f"on the device ({e['device_ms_cold']:.4f} cold), plain {e['plain_ms']:.3f}, bound "
+                f"{e['bound_ms']:.4f} ({e['bound_by']}), {e['device_share_of_bound_cold']:.0%} "
+                f"on the device, cold")
+    rows = []
+    for name, replaces in MONT_KERNELS:
+        shapes = per[name]
+        head = max((e for e in shapes if e["path"] == "ecg"), key=lambda e: e["calls"] * e["bound_ms"])
+        paths = {}
+        for path in calls:
+            mine = [e for e in shapes if e["path"] == path]
+            if mine:
+                t = {key: sum(e["calls"] * e[key] for e in mine)
+                     for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "bound_ms", "plain_ms")}
+                paths[path] = {**t, "layouts": len(mine), "calls": sum(e["calls"] for e in mine),
+                               "device_share_of_bound_cold": t["bound_ms"] / t["device_ms_cold"]}
+        main = paths["ecg"]
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": "hhe_tpu_torch/csrc/modarith.cu",
+            "replaces": replaces,
+            "launches": sum(per_path[name] for per_path in launches.values()),
+            "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
+            "max_abs_err": errs[name],
+            "tolerance": 0,  # exact residues: the kernel must equal its plain version
+            **{key: head[key] for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "plain_ms",
+                                          "bound_ms", "bound_by", "a", "b", "dim", "out", "terms")},
+            # no PyTorch call computes a Montgomery product modulo a per-row prime
+            "library_ms": None,
+            "shape_path": "ecg",
+            "calls_at_shape": head["calls"],
+            "paths": paths,
+            "shapes_checked": len(shapes),
+            "shapes": [{key: e[key] for key in ("path", "wrapper", "a", "b", "dim", "out", "calls",
+                                                "ms", "device_ms_cold", "plain_ms", "bound_ms")}
+                       for e in shapes],
+            "verdict": "equal",
+            "main_path_ms": main["ms"],
+            "main_path_device_ms": main["device_ms"],
+            "main_path_device_ms_cold": main["device_ms_cold"],
+            "main_path_bound_ms": main["bound_ms"],
+            "main_path_plain_ms": main["plain_ms"],
+            "main_path_device_share_of_bound_cold": main["device_share_of_bound_cold"],
+        }
+        rows.append(row)
+        log(f"{name} at a={head['a']} b={head['b']} dim={head['dim']} (ecg, x{head['calls']}): "
+            f"{head['ms']:.4f} ms a call ({head['device_ms']:.4f} on the device, "
+            f"{head['device_ms_cold']:.4f} cold), {head['plain_ms']:.3f} ms plain, bound "
+            f"{head['bound_ms']:.4f} ms ({head['bound_by']}); launches {row['launches_by_path']}; "
+            + "; ".join(f"{p}: {v['calls']} calls in {v['layouts']} layouts, {v['ms']:.3f} ms "
+                        f"({v['device_ms_cold']:.3f} on the device, cold; plain {v['plain_ms']:.1f}) "
+                        f"against {v['bound_ms']:.3f}" for p, v in paths.items()))
+    return rows
+
+
 def phase_main_path():
     import torch
 
     from hhe_tpu_torch.models import pocketnn
-    from hhe_tpu_torch.ops import bfv, ntt_kernels, pasta, transcipher
+    from hhe_tpu_torch.ops import bfv, pasta, transcipher
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
     stats = {}
@@ -627,17 +984,17 @@ def phase_main_path():
     w = rng.integers(-508, 509, transcipher.T)
 
     torch.cuda.reset_peak_memory_stats()
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         out = wk.hhe_ecg_inference(stack, w, x)
         torch.cuda.synchronize()
         stats["ecg_inference_s"] = time.perf_counter() - t0
-    launches = dict(ntt_kernels.LAUNCHES)
+    launches = launch_counts()
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path: hhe_ecg_inference B={B} in {stats['ecg_inference_s']:.2f} s, "
         f"launches {launches}")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:  # no row longer than a tile here
+    if min(launches[k] for k in PATH_KERNELS) == 0:  # no row longer than a tile here
         raise AssertionError(f"a kernel did not launch on the main path: {launches}")
 
     sums = (x.astype(np.int64) * w).sum(1)
@@ -710,7 +1067,7 @@ def phase_parallel(stack):
     ``csp_decompose(mesh=)`` equal to the unsplit result bit for bit (each
     with its keystream evaluated afresh) and decrypting to its input, and
     ``keystream_ct(expand_on_device=False)`` equal to the default; K1 and K2
-    must launch at M = 128 and 256.  Then, outside the counted run: the
+    must launch at M = 128 and 256, K3 and K4 at all.  Then, outside the counted run: the
     native and the pure-Python PASTA block expansion, equal, ms each with
     the cache cleared (the native one must be what every earlier phase
     used), and the sharded transforms' and the single-card NTT's times."""
@@ -718,7 +1075,7 @@ def phase_parallel(stack):
     import torch.distributed as dist
 
     from hhe_tpu_torch import native
-    from hhe_tpu_torch.ops import bfv, ntt, ntt_kernels, pasta, primes, transcipher
+    from hhe_tpu_torch.ops import bfv, ntt, pasta, primes, transcipher
     from hhe_tpu_torch.parallel import mesh as hmesh
     from hhe_tpu_torch.parallel import ntt_shard
     from hhe_tpu_torch.workloads import hhe_inference as wk
@@ -736,7 +1093,7 @@ def phase_parallel(stack):
     enc_key = tc.encrypt_key(stack.pk, key)
     operands, shardeds = {}, {}
 
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         for n, k in PARALLEL_NTTS:
@@ -786,12 +1143,14 @@ def phase_parallel(stack):
         if not torch.equal(ks_host.data, ks_dev.data):
             raise AssertionError("keystream_ct(expand_on_device=False) differs from the default")
         tc.clear_caches()
-    launches = dict(ntt_kernels.LAUNCHES)
-    ms = {(shape[-1], name) for name, calls in rec.calls.items() for shape, _ in calls}
+    launches = launch_counts()
+    ms = {(shape[-1], name) for name in ("ntt_fwd", "ntt_inv") for shape, _ in rec.calls[name]}
     for m in (128, 256):
         for name in ("ntt_fwd", "ntt_inv"):
             if (m, name) not in ms:
                 raise AssertionError(f"{name} did not launch at M={m} on the parallel path")
+    if min(launches["mont_mul"], launches["mont_mac"]) == 0:
+        raise AssertionError(f"a Montgomery kernel did not launch on the parallel path: {launches}")
     log(f"parallel ({stats['backend']}, world {stats['world_size']}): ShardedNtt at "
         f"{[n for n, _ in PARALLEL_NTTS]} equal to poly_mul_host, sharded keygen equal to the "
         f"host's, csp_decompose(mesh=) and the host-expanded keystream equal to the unsplit "
@@ -841,7 +1200,7 @@ def phase_limb(stack):
     must be split (limbs 0..12 in one block: a view that kept its limbs
     whole where the mesh divides them fails), every result must equal the
     unsplit one bit for bit, the predictions the plaintext model's and the
-    summed slots x @ w mod t, and K1 and K2 must launch.  Then, outside the
+    summed slots x @ w mod t, and K1-K4 must launch.  Then, outside the
     counted run, keystream and FC times split and unsplit, the all-gathers
     (and bytes) of a keystream block, and the bytes of the key set each
     rank holds against the whole set's."""
@@ -849,7 +1208,7 @@ def phase_limb(stack):
     import torch.distributed as dist
 
     from hhe_tpu_torch.models import pocketnn
-    from hhe_tpu_torch.ops import bfv, ntt_kernels, pasta, transcipher
+    from hhe_tpu_torch.ops import bfv, pasta, transcipher
     from hhe_tpu_torch.parallel import mesh as hmesh
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -883,7 +1242,7 @@ def phase_limb(stack):
     if key_l.data.shape != (2, len(view.limbs), ctx.n):
         raise AssertionError(f"shard_limbs placed {tuple(key_l.data.shape)}")
 
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         ks_l = tcl.keystream_ct(key_l, nonce, 0)
@@ -896,8 +1255,8 @@ def phase_limb(stack):
         got["keystream"] = hmesh.gather_limbs(ks_l.data, mesh)
         torch.cuda.synchronize()
         stats["limb_path_s"] = time.perf_counter() - t0
-    launches = dict(ntt_kernels.LAUNCHES)
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    launches = launch_counts()
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the limb path: {launches}")
     for name, want in (("keystream", ks.data), ("prod", prod.data), ("summed", summed.data)):
         if not torch.equal(got[name], want):
@@ -975,7 +1334,7 @@ def phase_1fc():
     experiment report's per-party ms and per-edge MB."""
     import torch
 
-    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.ops import bfv
     from hhe_tpu_torch.utils.config import RunConfig
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -989,15 +1348,15 @@ def phase_1fc():
     rng = np.random.default_rng(0)
     w = rng.integers(-3, 4, FC_L)
     x = rng.integers(0, 32, (B, FC_L))
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         out = wk.hhe_1fc_inference(stack, w, x, check_parity=True,
                                    run=RunConfig(dry_run=False, verbose=True))
         torch.cuda.synchronize()
         stats["inference_s"] = time.perf_counter() - t0
-    launches = dict(ntt_kernels.LAUNCHES)
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    launches = launch_counts()
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the 1FC path: {launches}")
     if not np.array_equal(out["raw"], x.astype(np.int64) @ w):
         raise AssertionError("1FC outputs differ from the plaintext model")
@@ -1027,10 +1386,10 @@ def phase_parties():
     ``evaluateModelFromFile`` and, for L=300, ``evaluateModel`` with the
     checkpoint's ciphertexts in repeated ``HHEDecomp`` entries.  Gates: each
     analyst's results equal x @ w exactly and its predictions (x @ w > 0);
-    the three secret keys differ; K1 and K2 launch."""
+    the three secret keys differ; K1-K4 launch."""
     import torch
 
-    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.ops import bfv
     from hhe_tpu_torch.parties import rpc
     from hhe_tpu_torch.parties.analyst import Analyst, AnalystServer
     from hhe_tpu_torch.parties.csp import CSP, CSPServer
@@ -1056,7 +1415,7 @@ def phase_parties():
     servers, users, analysts = [], [], []
     tmp = tempfile.TemporaryDirectory()
     torch.cuda.reset_peak_memory_stats()
-    ntt_kernels.reset_launches()
+    reset_launches()
     try:
         with ShapeRecorder() as rec:
             csp, stats["csp_setup_s"] = timed(lambda: CSP(params(2), workdir=tmp.name))
@@ -1114,7 +1473,7 @@ def phase_parties():
                     ct0 = serial.load_ciphertext_vec(f.read(), csp.ctx.device)[0]
                 res = csp.evaluate_model(addr, [ct0])[0]
                 st["result_noise_budget_bits"] = a.ctx.noise_budget(a.sk, res)
-        launches = dict(ntt_kernels.LAUNCHES)
+        launches = launch_counts()
         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         everyone = [t[3] for t in analysts] + users + [csp]
         timer, ledger = metrics.merge(timers=[p.timer for p in everyone],
@@ -1131,7 +1490,7 @@ def phase_parties():
         f"results equal x @ w, keys differ, launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the parties' path: {launches}")
     return stats, launches, rec.calls
 
@@ -1268,10 +1627,10 @@ def phase_ecg_full(stack, samples):
     [-508, 508] and a 13,245-row label file (temporary CSVs), `samples` of
     them (RunConfig's dry run; all with 0) in chunks of 512 samples, the
     product in slices of 64, one batched decrypt per chunk.  Its agreement
-    with the plaintext model must be 1.0 and both kernels must launch."""
+    with the plaintext model must be 1.0 and K1-K4 must launch."""
     import torch
 
-    from hhe_tpu_torch.ops import ntt_kernels, transcipher
+    from hhe_tpu_torch.ops import transcipher
     from hhe_tpu_torch.utils.config import RunConfig
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -1282,12 +1641,12 @@ def phase_ecg_full(stack, samples):
         np.savetxt(os.path.join(tmp, "mitbih_bin_y_test.csv"),
                    rng.integers(0, 2, MITBIH_TEST_ROWS), fmt="%d")
         torch.cuda.reset_peak_memory_stats()
-        ntt_kernels.reset_launches()
+        reset_launches()
         with ShapeRecorder() as rec:
             out, wall = timed(lambda: wk.hhe_ecg_full_inference(
                 stack, files["fc1_weight"], batch=ECG_FULL_BATCH, eval_batch=B, run=run,
                 labels_root=tmp))
-        launches = dict(ntt_kernels.LAUNCHES)
+        launches = launch_counts()
     rep = out["report"]
     stats = {"samples": rep["samples"], "batch": ECG_FULL_BATCH, "eval_batch": B,
              "wall_s": wall, "samples_per_s": rep["samples"] / wall,
@@ -1299,7 +1658,7 @@ def phase_ecg_full(stack, samples):
         log(f"  {key_}: {val}")
     if out["agreement"] != 1.0:
         raise AssertionError(f"full ECG run: agreement {out['agreement']} with the plaintext model")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the full ECG run: {launches}")
     return stats, launches, rec.calls
 
@@ -1337,7 +1696,7 @@ def phase_fmnist():
     RunConfig's debugging."""
     import torch
 
-    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.ops import bfv
     from hhe_tpu_torch.utils.config import RunConfig
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -1356,10 +1715,10 @@ def phase_fmnist():
                 weight_csv=files["weight"], bias_csv=files["bias"])
 
         torch.cuda.reset_peak_memory_stats()
-        ntt_kernels.reset_launches()
+        reset_launches()
         with ShapeRecorder() as rec:
             out, stats["inference_s"] = timed(run)
-        launches = dict(ntt_kernels.LAUNCHES)
+        launches = launch_counts()
         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         budgets = debug_budgets(lambda: run(RunConfig(dry_run=False, debugging=True)))
     stats["computation_ms"] = out["report"]["computation_ms"]
@@ -1370,7 +1729,7 @@ def phase_fmnist():
         f"parity held, launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the FMNIST path: {launches}")
     return stats, launches, rec.calls
 
@@ -1407,10 +1766,11 @@ def phase_mnist_2fc():
     warm-up with RunConfig's debugging gives the stage budgets; then, the
     keystream caches cleared, the timed run (a new key ciphertext, so its
     seven keystream blocks are evaluated again): inferences/s over the
-    transcipher and the fc1/square/fc2 pass, and the peak memory."""
+    transcipher and the fc1/square/fc2 pass, and the peak memory; then the
+    same call at twice MNIST_ROW_CHUNK, its peak memory or "out of memory"."""
     import torch
 
-    from hhe_tpu_torch.ops import bfv, ntt_kernels
+    from hhe_tpu_torch.ops import bfv
     from hhe_tpu_torch.utils.config import RunConfig
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -1436,20 +1796,28 @@ def phase_mnist_2fc():
     stats["noise_budget_after_2fc"] = budgets["2FC eval"]
     stack.tc.clear_caches()
     free_device()
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec, PhaseTimer(wk, ("csp_decompose", "csp_eval_2fc")) as pt:
         out, stats["inference_s"] = timed(run)
-    launches = dict(ntt_kernels.LAUNCHES)
+    launches = launch_counts()
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     stats["transcipher_s"] = pt.seconds["csp_decompose"]
     stats["eval_2fc_s"] = pt.seconds["csp_eval_2fc"]
     stats["inferences_per_s"] = MNIST_B / (stats["transcipher_s"] + stats["eval_2fc_s"])
     stats["predictions"] = out["predictions"].tolist()
+    # whether twice the rows a pass fit the card (parity still checked)
+    free_device()
+    try:
+        wk.hhe_2fc_inference(stack, w1, w2, x, via_transcipher=True, check_parity=True,
+                             row_chunk=2 * MNIST_ROW_CHUNK)
+        stats[f"peak_mem_gib_row_chunk_{2 * MNIST_ROW_CHUNK}"] = torch.cuda.max_memory_allocated() / 2**30
+    except torch.cuda.OutOfMemoryError:
+        stats[f"peak_mem_gib_row_chunk_{2 * MNIST_ROW_CHUNK}"] = "out of memory"
     log(f"mnist_2fc: B={MNIST_B}, 784 -> 128 -> square -> 10 at N=16384 / {MNIST_LIMBS} limbs, "
         f"row_chunk {MNIST_ROW_CHUNK}: parity held, launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the 2FC path: {launches}")
     return stats, launches, rec.calls
 
@@ -1475,13 +1843,13 @@ def phase_he_conv():
     (HCNN_EPOCHS epochs), device keygen, the conv and FC plaintexts, then
     HCNN_IMAGES encrypted images.  Gates: the encrypted logits equal the
     integer model's (the workload raises otherwise), noise budget left after
-    the FC, K1 and K2 launched.  Records the Galois key count, the QAT,
+    the FC, K1-K4 launched.  Records the Galois key count, the QAT,
     keygen and plaintext seconds, per image the host encryption, device
     evaluation and decrypt/decode seconds, the seconds in each heconv
     function, the budget after each stage and the peak memory."""
     import torch
 
-    from hhe_tpu_torch.ops import heconv, ntt_kernels
+    from hhe_tpu_torch.ops import heconv
     from hhe_tpu_torch.workloads import he_conv
 
     rng = np.random.default_rng(16)
@@ -1490,12 +1858,12 @@ def phase_he_conv():
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         write_mnist_idx(tmp, rng.integers(0, 256, (total, 784)), rng.integers(0, 10, total))
-        ntt_kernels.reset_launches()
+        reset_launches()
         with ShapeRecorder() as rec, PhaseTimer(heconv, stages) as pt:
             rep, wall = timed(lambda: he_conv.he_mnist_conv_inference(
                 n_images=HCNN_IMAGES, train_subset=HCNN_TRAIN, epochs=HCNN_EPOCHS, n=16384,
                 data_limbs=HCNN_LIMBS, mnist_root=tmp))
-        launches = dict(ntt_kernels.LAUNCHES)
+        launches = launch_counts()
     stats = {"limbs": HCNN_LIMBS, "t_bits": he_conv.conv_plain_t(16384).bit_length(),
              "wall_s": wall, **dataclasses.asdict(rep),
              # synchronised seconds in each heconv function, summed over the run
@@ -1508,7 +1876,7 @@ def phase_he_conv():
         log(f"  {key_}: {val}")
     if not (rep.he_matches_int and rep.noise_left > 0):
         raise AssertionError(f"HCNN: parity {rep.he_matches_int}, {rep.noise_left} bits left")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the HCNN path: {launches}")
     return stats, launches, rec.calls
 
@@ -1522,7 +1890,7 @@ def phase_large_chain():
     vector back.  The tile kernels and the top passes must launch."""
     import torch
 
-    from hhe_tpu_torch.ops import bfv, bfv_eval, ntt_kernels
+    from hhe_tpu_torch.ops import bfv, bfv_eval
 
     stats = {}
     t0 = time.perf_counter()
@@ -1547,13 +1915,13 @@ def phase_large_chain():
     if stats["noise_budget_fresh"] <= 1000 or not np.array_equal(dec, v):
         raise AssertionError(f"58-limb encryption wrong or noisy ({stats['noise_budget_fresh']} bits)")
 
-    ntt_kernels.reset_launches()
+    reset_launches()
     g = ctx.galois_elt_from_step(-1)
     with ShapeRecorder() as rec:
         (_, gks), stats["galois_key_s"] = timed(
             lambda: ctx.keygen_eval_keys_device(sk, [g], include_relin=False, seed=7))
         rot, stats["rotate_s"] = timed(lambda: bfv_eval.rotate_rows(ctx, ct, -1, gks))
-    launches = dict(ntt_kernels.LAUNCHES)
+    launches = launch_counts()
     stats["galois_key_gib"] = 2 * gks[g].k0.numel() * 4 / 2**30
     stats["noise_budget_rotated"] = ctx.noise_budget(sk, rot)
     half = ctx.n // 2
@@ -1576,9 +1944,9 @@ def phase_large_chain():
 def phase_rotation_32768():
     """N = 32768 through the entry points: ``default_context(32768)`` (26
     limbs), a device galois key, ``rotate_rows`` by -1 on an encrypted
-    vector and the rolled vector back; the shapes it gives K1 and K2 go to
-    the kernel phase."""
-    from hhe_tpu_torch.ops import bfv, bfv_eval, ntt_kernels
+    vector and the rolled vector back; the shapes and layouts it gives K1-K4
+    go to the kernel phase."""
+    from hhe_tpu_torch.ops import bfv, bfv_eval
 
     ctx = bfv.default_context(32768, seed=3)
     sk = ctx.keygen_secret()
@@ -1587,10 +1955,10 @@ def phase_rotation_32768():
     ct = ctx.encrypt(pk, ctx.encode(v))
     g = ctx.galois_elt_from_step(-1)
     _, gks = ctx.keygen_eval_keys_device(sk, [g], include_relin=False, seed=3)
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         rot, rotate_s = timed(lambda: bfv_eval.rotate_rows(ctx, ct, -1, gks))
-    launches = dict(ntt_kernels.LAUNCHES)
+    launches = launch_counts()
     half = ctx.n // 2
     if not np.array_equal(ctx.decode(ctx.decrypt(sk, rot)),
                           np.roll(v.reshape(2, half), 1, axis=1).reshape(-1)):
@@ -1640,20 +2008,20 @@ def phase_large_keystream():
     material, synchronised per rep."""
     import torch
 
-    from hhe_tpu_torch.ops import ntt_kernels, pasta
+    from hhe_tpu_torch.ops import pasta
 
     stats = {"limbs": LARGE_KS_LIMBS}
     (ctx, sk, tc, key, enc_key), stats["setup_s"] = timed(
         lambda: large_keystream_setup(LARGE_KS_LIMBS))
     stats["galois_keys"] = len(tc.gks_all)
 
-    ntt_kernels.reset_launches()
+    reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         ks = tc.keystream_ct(enc_key, pasta.NONCE, 0)
         torch.cuda.synchronize()
         stats["first_block_s"] = time.perf_counter() - t0
-    launches = dict(ntt_kernels.LAUNCHES)
+    launches = launch_counts()
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel did not launch on the large keystream: {launches}")
     if not keystream_right(ctx, sk, key, ks):
@@ -1710,6 +2078,7 @@ def phase_profile(tc, enc_key, block_ms, tag):
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     ntt_ms = sum(e.self_device_time_total for e in evs if "ntt_" in e.key) / 1e3
+    mont_ms = sum(e.self_device_time_total for e in evs if "mont_kernel" in e.key) / 1e3
     out = {
         "profiled_block_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -1718,6 +2087,9 @@ def phase_profile(tc, enc_key, block_ms, tag):
         "device_kernels": sum(e.count for e in evs),
         "ntt_ms": ntt_ms,
         "ntt_share_of_busy": ntt_ms / busy_ms,
+        "mont_ms": mont_ms,
+        "mont_kernels": sum(e.count for e in evs if "mont_kernel" in e.key),
+        "mont_share_of_busy": mont_ms / busy_ms,
     }
     log(f"profile ({tag}): {out}")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
@@ -1864,7 +2236,7 @@ def phase_accuracy_parity():
     10, 3 epochs over 8,000 images), the MNIST 2FC integer accuracy on 2,000
     images, then ``build_stack`` at N=1024 / 13 limbs and
     ``hhe_1fc_inference`` on PARITY_SAMPLES samples with its hard parity
-    check.  Gates: the encrypted columns equal the integer ones, K1 and K2
+    check.  Gates: the encrypted columns equal the integer ones, K1-K4
     launched, and the float SpO2 weights of a card run within FLOAT_SPO2_TOL
     of a CPU run's with the same predictions on every row.  Records every
     column, the synchronised seconds of each part, the seconds of the float
@@ -1872,7 +2244,6 @@ def phase_accuracy_parity():
     difference and the peak memory."""
     import torch
 
-    from hhe_tpu_torch.ops import ntt_kernels
     from hhe_tpu_torch.workloads import float_baseline as fb
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -1881,12 +2252,12 @@ def phase_accuracy_parity():
     with tempfile.TemporaryDirectory() as tmp:
         siesta = write_reference_tree(tmp, np.random.default_rng(19))
         torch.cuda.reset_peak_memory_stats()
-        ntt_kernels.reset_launches()
+        reset_launches()
         with ShapeRecorder() as rec, PhaseTimer(fb, parts) as pt, \
                 PhaseTimer(wk, ("build_stack", "hhe_1fc_inference")) as pt_he:
             rep, wall = timed(lambda: fb.accuracy_parity_report(
                 encrypted_samples=PARITY_SAMPLES, reference_root=tmp))
-        launches = dict(ntt_kernels.LAUNCHES)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         card, card_s = timed(lambda: fb.train_float_spo2(root=siesta))
         cpu, cpu_s = timed(lambda: fb.train_float_spo2(root=siesta, device="cpu"))
@@ -1913,7 +2284,7 @@ def phase_accuracy_parity():
     if diff > FLOAT_SPO2_TOL or not agree:
         raise AssertionError(f"float SpO2 on the card: weights {diff} from the CPU's, "
                              f"predictions agree: {agree}")
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) == 0:
+    if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the accuracy path: {launches}")
     return stats, launches, rec.calls
 
@@ -1979,7 +2350,7 @@ def main():
     free_device()
     large, launches["large_keystream"], calls["large_keystream"] = phase_large_keystream()
     free_device()
-    rows = kernel_rows(launches, calls)
+    rows = kernel_rows(launches, calls) + mont_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
                       "parallel": parallel, "limb": limb, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,

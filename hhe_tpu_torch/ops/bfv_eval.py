@@ -31,7 +31,7 @@ import torch
 
 from . import ntt, rns
 from .bfv import Ciphertext, Context, KSwitchKey
-from .modular import add_mod, mont_mul, neg_mod, sub_mod, to_mont_host, tree_add_mod
+from .modular import add_mod, mont_mac, mont_mul, neg_mod, sub_mod, to_mont_host
 from .rns import reduce_u32
 
 I64 = torch.int64
@@ -209,11 +209,7 @@ def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey):
     [..., k, k'+1, N] NTT digits -> (h0, h1) [..., k'+1, N] NTT over q ∪ P."""
     ksk = ctx.take_key(ksk)
     qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
-    t0 = mont_mul(fd_perm, ksk.k0, qp, qpi)
-    t1 = mont_mul(fd_perm, ksk.k1, qp, qpi)
-    acc0 = tree_add_mod(t0, qp, axis=-3)[..., 0, :, :]
-    acc1 = tree_add_mod(t1, qp, axis=-3)[..., 0, :, :]
-    return acc0, acc1
+    return mont_mac(fd_perm, ksk.k0, qp, qpi, -3), mont_mac(fd_perm, ksk.k1, qp, qpi, -3)
 
 
 def mod_down(ctx: Context, c: torch.Tensor) -> torch.Tensor:
@@ -249,10 +245,8 @@ def keyswitch(
         for s in range(0, kd, digit_chunk):
             e = min(s + digit_chunk, kd)
             fd = ntt.ntt_fwd(_digits(ctx, poly_q, s, e), ctx.tb_qp)
-            t0 = mont_mul(fd, ksk.k0[s:e], qp, qpi)
-            t1 = mont_mul(fd, ksk.k1[s:e], qp, qpi)
-            p0 = tree_add_mod(t0, qp, axis=-3)[..., 0, :, :]
-            p1 = tree_add_mod(t1, qp, axis=-3)[..., 0, :, :]
+            p0 = mont_mac(fd, ksk.k0[s:e], qp, qpi, -3)
+            p1 = mont_mac(fd, ksk.k1[s:e], qp, qpi, -3)
             acc0 = p0 if acc0 is None else add_mod(acc0, p0, qp)
             acc1 = p1 if acc1 is None else add_mod(acc1, p1, qp)
     c0 = ntt.ntt_inv(acc0, ctx.tb_qp)

@@ -15,6 +15,11 @@ form (``mont_mul_lazy``, result in [0, 2q)) gives the same bits:
 Every function returns the dtype of its first tensor argument; tables and
 constants are int64 ``[k, 1]`` columns that broadcast against ``[..., k, N]``.
 ``host`` is the numpy u64 golden model.
+
+``mont_mul``, ``mont_mul_lazy`` and ``mont_mac`` send a CUDA tensor ``a`` to
+the hand-written kernels of ``mod_kernels`` (K3, K4), which raise on what
+they do not take, and a CPU tensor to their plain versions
+(``mont_mul_plain``, ``mont_mul_lazy_plain``, ``mont_mac_plain``).
 """
 
 from __future__ import annotations
@@ -80,17 +85,58 @@ def _redc(a, b, q, qinv_neg):
     return hi + mhi + (lo != 0).to(I64)
 
 
+def _on_cuda(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.is_cuda
+
+
 def mont_mul(a, b_mont, q, qinv_neg):
     """Montgomery product: a * b_mont * 2^-32 mod q, in [0, q)."""
-    t = _redc(a, b_mont, q, qinv_neg)
-    q = _w(q)
-    return _like(torch.where(t >= q, t - q, t), a)
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mont_mul(a, b_mont, q, qinv_neg)
+    return mont_mul_plain(a, b_mont, q, qinv_neg)
 
 
 def mont_mul_lazy(a, b_mont, q, qinv_neg):
     """Montgomery product without the final subtract: [0, 2q) (Harvey lazy
     form).  Admits any a < 2^32 when b_mont < q < 2^30."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mont_mul_lazy(a, b_mont, q, qinv_neg)
+    return mont_mul_lazy_plain(a, b_mont, q, qinv_neg)
+
+
+def mont_mac(a, b_mont, q, qinv_neg, dim: int):
+    """Montgomery multiply-accumulate: the sum over axis ``dim`` of the
+    broadcast of a and b_mont of mont_mul(a, b_mont) mod q, in [0, q), with
+    that axis removed; q and qinv_neg broadcast against the same shape and
+    do not vary along ``dim``."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mont_mac(a, b_mont, q, qinv_neg, dim)
+    return mont_mac_plain(a, b_mont, q, qinv_neg, dim)
+
+
+def mont_mul_plain(a, b_mont, q, qinv_neg):
+    """Plain version of ``mont_mul`` (int64 PyTorch)."""
+    t = _redc(a, b_mont, q, qinv_neg)
+    q = _w(q)
+    return _like(torch.where(t >= q, t - q, t), a)
+
+
+def mont_mul_lazy_plain(a, b_mont, q, qinv_neg):
+    """Plain version of ``mont_mul_lazy``."""
     return _like(_redc(a, b_mont, q, qinv_neg), a)
+
+
+def mont_mac_plain(a, b_mont, q, qinv_neg, dim: int):
+    """Plain version of ``mont_mac``: the products, then ``tree_add_mod``
+    (the JAX package's ``tree_add_mod(mont_mul(...))``)."""
+    t = mont_mul_plain(a, b_mont, q, qinv_neg)
+    return tree_add_mod(t, q, axis=dim).select(dim, 0)
 
 
 def add_mod(a, b, q):

@@ -196,7 +196,7 @@ def _fwd_stages(x: torch.Tensor, tb: NttTables, stop: int) -> torch.Tensor:
         yv = y.reshape(*lead, k, m, 2, t)
         s = tb.psi_br[:, m : 2 * m].reshape(k, m, 1)
         u = yv[..., 0, :]
-        v = modular.mont_mul(yv[..., 1, :], s, q, qi)
+        v = modular.mont_mul_plain(yv[..., 1, :], s, q, qi)
         y = torch.stack(
             [modular.add_mod(u, v, q), modular.sub_mod(u, v, q)], dim=-2
         ).reshape(*lead, k, n)
@@ -220,12 +220,12 @@ def _inv_stages(x: torch.Tensor, tb: NttTables, h: int) -> torch.Tensor:
         y = torch.stack(
             [
                 modular.add_mod(u, v, q),
-                modular.mont_mul(modular.sub_mod(u, v, q), s, q, qi),
+                modular.mont_mul_plain(modular.sub_mod(u, v, q), s, q, qi),
             ],
             dim=-2,
         ).reshape(*lead, k, n)
         h //= 2
-    return modular.mont_mul(y, tb.ninv, tb.q, tb.qinv_neg).to(x.dtype)
+    return modular.mont_mul_plain(y, tb.ninv, tb.q, tb.qinv_neg).to(x.dtype)
 
 
 def ntt_fwd_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:

@@ -109,19 +109,21 @@ def ptxas_report(output: str) -> dict:
     return report
 
 
-def build() -> pathlib.Path:
-    """Compile ``csrc/ntt.cu`` unless a library for this source exists."""
-    src = SOURCE.read_bytes()
+def build(source: pathlib.Path = SOURCE, log: dict = BUILD_LOG) -> pathlib.Path:
+    """Compile ``source`` (``csrc/ntt.cu`` by default) into
+    ``libhhe_<stem>_<hash>.so`` unless a library for this source exists;
+    fills ``log`` as ``BUILD_LOG``."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libhhe_ntt_{tag}.so"
+    out = BUILD_DIR / f"libhhe_{source.stem}_{tag}.so"
     if out.exists():
-        BUILD_LOG.setdefault("library", str(out))
+        log.setdefault("library", str(out))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(SOURCE, tmp), capture_output=True, text=True)
-    BUILD_LOG.update(
+    proc = subprocess.run(nvcc_command(source, tmp), capture_output=True, text=True)
+    log.update(
         library=str(out),
         seconds=time.perf_counter() - t0,
         compiler_output=proc.stdout + proc.stderr,

@@ -107,18 +107,20 @@ def fbc_digits(x: torch.Tensor, f: FBC) -> torch.Tensor:
 def fbc_from_digits(tmp: torch.Tensor, f: FBC, chunk: int = 4) -> torch.Tensor:
     """FBC given precomputed digits: [..., ka, N] -> [..., kc, N].
 
-    Batched [..., chunk, kc, N] multiplies and log-depth tree reductions,
-    accumulated over ceil(ka/chunk) groups (bounds the ka x kc temporary)."""
+    Multiply-accumulates over groups of ``chunk`` digits on the CPU (bounds
+    the plain version's [..., chunk, kc, N] temporary); the kernel (K4)
+    keeps no temporary and takes all ka digits in one launch."""
     ka = tmp.shape[-2]
+    step = ka if tmp.is_cuda else chunk
     acc = None
-    for s in range(0, ka, chunk):
-        part = modular.mont_mul(
-            tmp[..., s : s + chunk, None, :],
-            f.m_mont[s : s + chunk, :, None],
+    for s in range(0, ka, step):
+        part = modular.mont_mac(
+            tmp[..., s : s + step, None, :],
+            f.m_mont[s : s + step, :, None],
             f.c_q,
             f.c_qinv,
-        )  # [..., <=chunk, kc, N]
-        part = modular.tree_add_mod(part, f.c_q, axis=-3)[..., 0, :, :]
+            -3,
+        )  # [..., kc, N]
         acc = part if acc is None else modular.add_mod(acc, part, f.c_q)
     return acc
 

@@ -34,7 +34,7 @@ import torch
 
 from . import bfv_eval, ntt, pasta, rns
 from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
-from .modular import add_mod, mont_mul, neg_mod, to_mont_host, tree_add_mod
+from .modular import add_mod, mont_mac, mont_mul, neg_mod, to_mont_host
 
 T = pasta.PASTA_T
 # BSGS split of the 128 diagonals: n1 babysteps x n2 giantsteps.  Any split
@@ -421,13 +421,10 @@ class Transcipher:
         # all n1 NTT-domain rotations of f0 at once (row 0 = identity)
         rot_f0 = f0[:, baby_srcs].transpose(0, 1)  # [n1, k, N]
 
-        def contract(fdig_t, k0s, k1s):  # over all kd digits
-            t0 = mont_mul(fdig_t[..., 0, :], k0s[..., 0, :], qp, qpi)
-            t1 = mont_mul(fdig_t[..., 0, :], k1s[..., 0, :], qp, qpi)
-            for d in range(1, fdig_t.shape[-2]):
-                t0 = add_mod(t0, mont_mul(fdig_t[..., d, :], k0s[..., d, :], qp, qpi), qp)
-                t1 = add_mod(t1, mont_mul(fdig_t[..., d, :], k1s[..., d, :], qp, qpi), qp)
-            return t0, t1
+        qpc, qpic = qp[:, None], qpi[:, None]  # the moduli on axis -3
+
+        def contract(fdig_t, k0s, k1s):  # over all kd digits (axis -2)
+            return (mont_mac(fdig_t, k0s, qpc, qpic, -2), mont_mac(fdig_t, k1s, qpc, qpic, -2))
 
         b0, b1 = contract(fd_t, baby_k0, baby_k1)  # [n1-1, k+1, N]
         h0 = _take_rows(b0, baby_srcs[1:])
@@ -437,12 +434,12 @@ class Transcipher:
         dqp = mats_qp.reshape(n2, n1, ctx.k + 1, ctx.n)
 
         # q-part: acc0q[g] = sum_j rot_f0[j] * Dq[g, j]; raw c1 only at j = 0
-        acc0q = tree_add_mod(mont_mul(rot_f0[None], dq, q, qi), q, axis=1)[:, 0]
+        acc0q = mont_mac(rot_f0[None], dq, q, qi, 1)
         acc1q = mont_mul(f1[None], dq[:, 0], q, qi)
 
         # P-part: acc*p[g] = sum_{j>=1} H*[j] * Dqp[g, j], lazily over q ∪ P
-        acc0p = tree_add_mod(mont_mul(h0[None], dqp[:, 1:], qp, qpi), qp, axis=1)[:, 0]
-        acc1p = tree_add_mod(mont_mul(h1[None], dqp[:, 1:], qp, qpi), qp, axis=1)[:, 0]
+        acc0p = mont_mac(h0[None], dqp[:, 1:], qp, qpi, 1)
+        acc1p = mont_mac(h1[None], dqp[:, 1:], qp, qpi, 1)
 
         iq = ntt.ntt_inv(torch.stack([acc0q, acc1q]), ctx.tb_q)  # [2, n2, k, N]
         ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(torch.stack([acc0p, acc1p]), ctx.tb_qp))

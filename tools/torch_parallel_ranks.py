@@ -279,9 +279,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
-    from hhe_tpu_torch.ops import ntt_kernels
+    from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
-    ntt_kernels.build()
+    ntt_kernels.build()  # once, before the ranks start
+    mod_kernels.build()
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
