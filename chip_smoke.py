@@ -18,7 +18,8 @@ Phases (any failure propagates and the exit code is nonzero):
    inv(fwd(x)) == x; K3 (eager and lazy) and K4 against theirs at the shapes
    and broadcast patterns of their sites at N = 16384 / 13 limbs and
    N = 65536 / 17 limbs, on operands holding 0, q - 1 and lazy [0, 2q)
-   values (``check_mont_sites``);
+   values, each K4 form (general, fanout, table, fanout_regs) launched,
+   aligned and not (``check_mont_sites``);
 3. ECG path (the main path): ``build_stack`` at the production BFV
    parameters (N=16384, 13 x 30-bit limbs, device keygen), then
    ``hhe_ecg_inference`` on B=64 samples.  Predictions must equal the
@@ -110,14 +111,16 @@ Phases (any failure propagates and the exit code is nonzero):
    LARGE_KS_LIMBS limbs, decrypting to the plain PASTA keystream, its
    budget after each round, its time and its profile;
 7. kernels at the paths' shapes: every shape each path of phases 3-6 gave
-   each NTT kernel, and every operand layout the ECG path and the MONT_TOP
-   most-called layouts each other path gave K3 and K4, on random residues,
+   each NTT kernel, and every operand layout the ECG path, the MONT_TOP
+   most-called layouts and every base conversion each other path gave K3
+   and K4, on random residues,
    against the plain version (``torch.equal``; above N = 16384 each NTT
    launch alone too), timed per call from Python (``ms``) and on the device
    alone (``device_ms``, a CUDA graph of launches) on one operand, and again
    cycling through copies that miss the L2 (``ms_cold``,
    ``device_ms_cold``), each beside its bound and (K3, K4) the plain
-   version's ms;
+   version's ms; each K4 layout with the form it took and, for a fan-out
+   form, the general form's cold device time on the same copies;
 8. one JSON line of every phase's numbers, the card's line, one JSON line
    with every kernel's launches per path, error, time, plain time and bound,
    per shape and summed per path, then the device line last.
@@ -234,6 +237,8 @@ def wall_s(fn) -> float:
 # the kernels every path of phases 3-6 must launch: K1, K2 (the NTT), K3 and
 # K4 (the Montgomery product and multiply-accumulate)
 PATH_KERNELS = ("ntt_fwd", "ntt_inv", "mont_mul", "mont_mac")
+# and, on rows longer than 16384 words, the NTT's top passes
+TOP_KERNELS = ("ntt_fwd_top", "ntt_inv_top")
 
 
 def reset_launches():
@@ -246,7 +251,8 @@ def reset_launches():
 def launch_counts() -> dict:
     from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
-    return {**ntt_kernels.LAUNCHES, **mod_kernels.LAUNCHES}
+    return {**ntt_kernels.LAUNCHES, **mod_kernels.LAUNCHES,
+            **{f"mont_mac_{form}": n for form, n in mod_kernels.FORM_LAUNCHES.items()}}
 
 
 def phase_device():
@@ -400,8 +406,9 @@ def mont_call(name, a, b, q, qi, dim):
 
 def mont_plain(name, a, b, q, qi, dim):
     """The plain version of `name`, over slices of the broadcast shape's
-    leading axis when the products are many (each output word depends on
-    its own products only, so the slices concatenate to the whole)."""
+    outer axes (the reduction's aside) when the products are many: each
+    output word depends on its own products only, so the slices concatenate
+    to the whole."""
     import torch
 
     from hhe_tpu_torch.ops import modular
@@ -411,30 +418,39 @@ def mont_plain(name, a, b, q, qi, dim):
     ops = (a, b, q, qi)
     full = torch.broadcast_shapes(*(x.shape for x in ops if isinstance(x, torch.Tensor)))
     nd, words = len(full), int(np.prod(full))
-    if words <= PLAIN_SLICE_WORDS or full[0] == 1 or (dim is not None and dim % nd == 0):
+    red = None if dim is None else dim % nd
+    axes = [d for d in range(nd - 1) if d != red and full[d] > 1]
+    if words <= PLAIN_SLICE_WORDS or not axes:
         return fn(*ops)
-    step = max(1, full[0] * PLAIN_SLICE_WORDS // words)
+    d = axes[0]
+    step = max(1, full[d] * PLAIN_SLICE_WORDS // words)
 
     def cut(x, i):
-        whole = not isinstance(x, torch.Tensor) or x.ndim < nd or x.shape[0] == 1
-        return x if whole else x[i : i + step]
+        if not isinstance(x, torch.Tensor) or x.ndim < nd - d or x.shape[d - nd] == 1:
+            return x
+        return x.narrow(d - nd, i, min(step, full[d] - i))
 
-    return torch.cat([fn(*(cut(x, i) for x in ops)) for i in range(0, full[0], step)])
+    out_axis = d if red is None or d < red else d - 1
+    return torch.cat([mont_plain(name, *(cut(x, i) for x in ops), dim)
+                      for i in range(0, full[d], step)], dim=out_axis)
 
 
 def check_mont_sites():
     """Phase 2's K3 / K4 checks, at N = 16384 / 13 limbs and N = 65536 /
     LARGE_KS_LIMBS limbs (30-bit q and P, 31-bit Bsk moduli): each kernel
     against its plain version (``torch.equal``) at the shapes and broadcast
-    patterns of its sites -- K4 at the key-switch products
-    (``hoisted_ks_products``, a ``keyswitch`` digit chunk against a row slice
-    of the key), the BSGS key contraction (digits as a transposed view),
-    the BSGS plaintext sums (one over a [:, 1:] view) and the base
-    conversion (``fbc_from_digits``); K3, eager and lazy, at ``mod_down``'s
-    and ``multiply_plain``'s shapes on lazy inputs in [0, 2q) and with a
-    Python-int b (``from_mont``); one K3 and one K4 site again on rows that
-    are not 16-byte aligned (the kernel's word path; the others take its
-    vector path).  Every operand holds 0 and its bound - 1."""
+    patterns of its sites -- K4 at the key-switch products against one key
+    and against the k0/k1 pair (``hoisted_ks_products``: a batch, one
+    ciphertext, a ``keyswitch`` digit chunk against a row slice of the
+    key), the BSGS key contraction (digits as a transposed view, one key
+    and the pair), the giantsteps' contraction, the BSGS plaintext sums (one
+    over a [:, 1:] view, against H0/H1 as ``_take_rows`` leaves them) and
+    the base conversions (``fbc_from_digits`` q -> Bsk, B -> q ∪ {m_sk});
+    K3, eager and lazy, at ``mod_down``'s and ``multiply_plain``'s shapes on
+    lazy inputs in [0, 2q) and with a Python-int b (``from_mont``); K3 and
+    each K4 form again on rows that are not 16-byte aligned (the kernel's
+    word path; the others take its vector path).  Each K4 form (general,
+    fanout, table) must launch.  Every operand holds 0 and its bound - 1."""
     import torch
 
     from hhe_tpu_torch.ops import mod_kernels, primes
@@ -452,9 +468,11 @@ def check_mont_sites():
         def r(shape, qq, top=1):
             return mont_residues(shape, qq, gen, top)
 
-        key = r((kd, kp, n), qp)
-        lazy_in, wide_in = r((2, k, n), q, 2), r((2, 64 if n <= 16384 else 4, k, n), q, 2)
+        key, pair = r((kd, kp, n), qp), r((2, kd, kp, n), qp)
+        batch = 64 if n <= 16384 else 4
+        lazy_in, wide_in = r((2, k, n), q, 2), r((2, batch, k, n), q, 2)
         col, plain_pt = r((k, 1), q), r((k, n), q)
+        q_msk, q_mski = mont_columns(primes.ntt_primes(n, 30, k) + primes.ntt_primes(n, 31, 1), dev)
         sites = {  # name: (wrapper, a, b, q, qinv_neg, dim)
             "mod_down": ("mont_mul", lazy_in, col, q, qi, None),
             "mod_down lazy": ("mont_mul_lazy", lazy_in, col, q, qi, None),
@@ -462,31 +480,62 @@ def check_mont_sites():
             "multiply_plain lazy": ("mont_mul_lazy", wide_in, plain_pt, q, qi, None),
             "from_mont": ("mont_mul", lazy_in, 1, q, qi, None),
             "hoisted_ks_products": ("mont_mac", r((2, kd, kp, n), qp), key, qp, qpi, -3),
+            # one key against one ciphertext has no fan-out: the general form
+            "one ciphertext, one key": ("mont_mac", r((kd, kp, n), qp), key, qp, qpi, -3),
+            "hoisted_ks_products, k0/k1": ("mont_mac", r((batch, kd, kp, n), qp), pair[:, None],
+                                           qp, qpi, -3),
+            "hoisted_ks_products, one ciphertext": ("mont_mac", r((kd, kp, n), qp), pair, qp, qpi, -3),
             "keyswitch digit_chunk": ("mont_mac", r((4, 4, kp, n), qp), key[4:8], qp, qpi, -3),
+            "keyswitch digit_chunk, k0/k1": ("mont_mac", r((4, 4, kp, n), qp), pair[:, None, 4:8],
+                                             qp, qpi, -3),
             "bsgs key contraction": ("mont_mac", key.transpose(-3, -2),
                                      r((31, kp, kd, n), qp[:, None]), qp[:, None], qpi[:, None], -2),
+            "bsgs key contraction, k0/k1": ("mont_mac", key.transpose(-3, -2),
+                                            r((2, 31, kp, kd, n), qp[:, None]), qp[:, None],
+                                            qpi[:, None], -2),
+            "bsgs giantstep contraction, k0/k1": ("mont_mac", r((3, kd, kp, n), qp).transpose(-3, -2),
+                                                  r((2, 3, kp, kd, n), qp[:, None]), qp[:, None],
+                                                  qpi[:, None], -2),
             "bsgs q sum": ("mont_mac", r((1, 32, k, n), q), r((4, 32, k, n), q), q, qi, 1),
             "bsgs qp sum": ("mont_mac", r((1, 31, kp, n), qp), r((4, 32, kp, n), qp)[:, 1:],
                             qp, qpi, 1),
-            "fbc_from_digits": ("mont_mac", r((3, k, n), q)[..., None, :],
-                                r((k, k + 2), bsk.reshape(1, -1))[:, :, None], bsk, bski, -3),
+            "bsgs qp sum, H0/H1": ("mont_mac", r((31, 2, kp, n), qp).transpose(0, 1)[:, None],
+                                   r((4, 32, kp, n), qp)[:, 1:], qp, qpi, 2),
+            "fbc_from_digits q -> Bsk": ("mont_mac", r((3, k, n), q)[..., None, :],
+                                         r((k, k + 2), bsk.reshape(1, -1)).long()[:, :, None],
+                                         bsk, bski, -3),
+            "fbc_from_digits B -> q + m_sk": ("mont_mac", r((3, k + 1, n), bsk[: k + 1])[..., None, :],
+                                              r((k + 1, k + 1), q_msk.reshape(1, -1)).long()[:, :, None],
+                                              q_msk, q_mski, -3),
             # rows that start off the 16-byte grid take the kernel's word path
             "mod_down, unaligned": ("mont_mul", r((2, k, n + 1), q, 2)[..., 1:], col, q, qi, None),
             "hoisted_ks_products, unaligned": ("mont_mac", r((2, kd, kp, n + 1), qp)[..., 1:],
                                                key, qp, qpi, -3),
+            "one ciphertext, one key, unaligned": ("mont_mac", r((kd, kp, n + 1), qp)[..., 1:],
+                                                   key, qp, qpi, -3),
+            "hoisted_ks_products, k0/k1, unaligned": ("mont_mac", r((2, kd, kp, n + 1), qp)[..., 1:],
+                                                      pair[:, None], qp, qpi, -3),
+            "bsgs key contraction, unaligned": ("mont_mac", key.transpose(-3, -2),
+                                                r((31, kp, kd, n + 1), qp[:, None])[..., 1:],
+                                                qp[:, None], qpi[:, None], -2),
+            "fbc_from_digits, unaligned": ("mont_mac", r((3, k, n + 1), q)[..., None, 1:],
+                                           r((k, k + 2), bsk.reshape(1, -1)).long()[:, :, None],
+                                           bsk, bski, -3),
         }
         for site, (name, a, b, qq, qqi, dim) in sites.items():
+            form = "" if dim is None else " " + mod_kernels.plan(a, b, qq, qqi, dim).form
             got = mont_call(name, a, b, qq, qqi, dim)
             want = mont_plain(name, a, b, qq, qqi, dim)
             ok = torch.equal(got, want)
-            log(f"kernels {name} n={n} k={k} {site} {list(got.shape)}: {'equal' if ok else 'DIFFER'}")
+            log(f"kernels {name}{form} n={n} k={k} {site} {list(got.shape)}: {'equal' if ok else 'DIFFER'}")
             if not ok:
                 raise AssertionError(f"{name} differs from its plain version at {site}, n={n}")
             del got, want
-        del sites, key, lazy_in, wide_in
-    log(f"kernels: launches {mod_kernels.LAUNCHES}")
-    if min(mod_kernels.LAUNCHES.values()) == 0:
-        raise AssertionError(f"a kernel did not launch in the kernel phase: {mod_kernels.LAUNCHES}")
+        del sites, key, pair, lazy_in, wide_in
+    log(f"kernels: launches {mod_kernels.LAUNCHES}, K4 by form {mod_kernels.FORM_LAUNCHES}")
+    if min(mod_kernels.LAUNCHES.values()) == 0 or min(mod_kernels.FORM_LAUNCHES.values()) == 0:
+        raise AssertionError(f"a kernel or form did not launch in the kernel phase: "
+                             f"{mod_kernels.LAUNCHES} {mod_kernels.FORM_LAUNCHES}")
 
 
 # the moduli columns (q, qinv_neg) first seen with each K3 / K4 layout, so
@@ -840,7 +889,10 @@ def mont_entry(key, calls, gen):
     recorded strides, so broadcast operands stay unmaterialised), the kernel
     against the plain version (``torch.equal``), timed as ``timings`` does
     (the ``_cold`` keys cycle through copies of a and b), the plain
-    version's ms, and the bound.  Returns (entry, max abs error)."""
+    version's ms, and the bound; for a K4 layout in a fan-out form, the
+    general form's device time on the same copies beside it (the one-pass loop,
+    which re-reads the shared operand for every output of its fan-out).
+    Returns (entry, max abs error)."""
     import torch
 
     from hhe_tpu_torch.ops import mod_kernels
@@ -877,26 +929,39 @@ def mont_entry(key, calls, gen):
         "a": [list(la[0]), la[2]] if not isinstance(la, int) else la,
         "b": [list(lb[0]), lb[2]] if not isinstance(lb, int) else lb,
         "dim": dim, "out": list(p.shape), "terms": p.terms, "calls": calls,
+        "form": p.form if name == "mont_mac" else None,
         "bound_ms": b_ms, "bound_by": b_by, **timings(hot, cold, b_ms),
         "plain_ms": cuda_ms(lambda: mont_plain(name, a, b, q, qi, dim), 2),
+        "general_device_ms_cold": None,
     }
+    if name == "mont_mac" and p.form != "general":
+        entry["general_device_ms_cold"] = graph_ms(rotating(
+            [lambda x=x, y=y: mod_kernels.mont_mac(x, y, q, qi, dim, fan_out=False) for x, y in pairs]))
     return entry, err
 
 
 def mont_rows(launches, calls):
-    """Phase 7 for K3 and K4: every layout the ECG path gave them and the
-    MONT_TOP most-called layouts of every other path in `calls`, checked and
+    """Phase 7 for K3 and K4: every layout the ECG path gave them, the
+    MONT_TOP most-called layouts of every other path in `calls` and every
+    base-conversion layout of each (K4 against constants), checked and
     timed by ``mont_entry`` (once a layout: a later path reuses the entry);
     one row per kernel, its headline at the ECG path's layout with the most
     bound time (calls x bound), ``paths`` summing calls x time over the
     checked layouts of each path."""
     import torch
 
+    from hhe_tpu_torch.ops import mod_kernels
+
     gen = torch.Generator(device="cuda").manual_seed(11)
     checked, per, errs = {}, {name: [] for name, _ in MONT_KERNELS}, dict.fromkeys(("mont_mul", "mont_mac"), 0)
+    def conversion(key):  # a K4 layout whose b is a constant per word row: a base conversion
+        lb = key[3]
+        return key[0] == "mont_mac" and not isinstance(lb, int) and lb[0][-1] == 1
+
     for path, path_calls in calls.items():
         mont = path_calls["mont"]
         keys = mont.items() if path == "ecg" else mont.most_common(MONT_TOP)
+        keys = list(keys) + [kv for kv in mont.items() if conversion(kv[0]) and kv not in keys]
         for key, cnt in keys:
             if key not in checked:
                 checked[key] = mont_entry(key, cnt, gen)
@@ -904,11 +969,13 @@ def mont_rows(launches, calls):
             e = dict(e, path=path, calls=cnt)
             per[e["kernel"]].append(e)
             errs[e["kernel"]] = max(errs[e["kernel"]], err)
-            log(f"  {path} {e['wrapper']} a={e['a']} b={e['b']} dim={e['dim']} -> {e['out']} "
-                f"x{cnt}: {e['ms']:.4f} ms a call ({e['ms_cold']:.4f} cold), {e['device_ms']:.4f} "
-                f"on the device ({e['device_ms_cold']:.4f} cold), plain {e['plain_ms']:.3f}, bound "
-                f"{e['bound_ms']:.4f} ({e['bound_by']}), {e['device_share_of_bound_cold']:.0%} "
-                f"on the device, cold")
+            general = e["general_device_ms_cold"]
+            log(f"  {path} {e['wrapper']}{' ' + e['form'] if e['form'] else ''} a={e['a']} b={e['b']} "
+                f"dim={e['dim']} -> {e['out']} x{cnt}: {e['ms']:.4f} ms a call ({e['ms_cold']:.4f} "
+                f"cold), {e['device_ms']:.4f} on the device ({e['device_ms_cold']:.4f} cold"
+                + (f"; general form {general:.4f}" if general is not None else "")
+                + f"), plain {e['plain_ms']:.3f}, bound {e['bound_ms']:.4f} ({e['bound_by']}), "
+                f"{e['device_share_of_bound_cold']:.0%} on the device, cold")
     rows = []
     for name, replaces in MONT_KERNELS:
         shapes = per[name]
@@ -919,6 +986,9 @@ def mont_rows(launches, calls):
             if mine:
                 t = {key: sum(e["calls"] * e[key] for e in mine)
                      for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "bound_ms", "plain_ms")}
+                # every layout in the general form (a fan-out form's layouts timed in both)
+                t["general_device_ms_cold"] = sum(
+                    e["calls"] * (e["general_device_ms_cold"] or e["device_ms_cold"]) for e in mine)
                 paths[path] = {**t, "layouts": len(mine), "calls": sum(e["calls"] for e in mine),
                                "device_share_of_bound_cold": t["bound_ms"] / t["device_ms_cold"]}
         main = paths["ecg"]
@@ -939,8 +1009,9 @@ def mont_rows(launches, calls):
             "calls_at_shape": head["calls"],
             "paths": paths,
             "shapes_checked": len(shapes),
-            "shapes": [{key: e[key] for key in ("path", "wrapper", "a", "b", "dim", "out", "calls",
-                                                "ms", "device_ms_cold", "plain_ms", "bound_ms")}
+            "shapes": [{key: e[key] for key in ("path", "wrapper", "form", "a", "b", "dim", "out",
+                                                "calls", "ms", "device_ms_cold",
+                                                "general_device_ms_cold", "plain_ms", "bound_ms")}
                        for e in shapes],
             "verdict": "equal",
             "main_path_ms": main["ms"],
@@ -950,13 +1021,19 @@ def mont_rows(launches, calls):
             "main_path_plain_ms": main["plain_ms"],
             "main_path_device_share_of_bound_cold": main["device_share_of_bound_cold"],
         }
+        if name == "mont_mac":  # K4's launches by form on each path
+            row["launches_by_form"] = {
+                path: {form: per_path.get(f"mont_mac_{form}", 0) for form in mod_kernels.FORMS}
+                for path, per_path in launches.items()}
+            log(f"mont_mac launches by form: {row['launches_by_form']}")
         rows.append(row)
         log(f"{name} at a={head['a']} b={head['b']} dim={head['dim']} (ecg, x{head['calls']}): "
             f"{head['ms']:.4f} ms a call ({head['device_ms']:.4f} on the device, "
             f"{head['device_ms_cold']:.4f} cold), {head['plain_ms']:.3f} ms plain, bound "
             f"{head['bound_ms']:.4f} ms ({head['bound_by']}); launches {row['launches_by_path']}; "
             + "; ".join(f"{p}: {v['calls']} calls in {v['layouts']} layouts, {v['ms']:.3f} ms "
-                        f"({v['device_ms_cold']:.3f} on the device, cold; plain {v['plain_ms']:.1f}) "
+                        f"({v['device_ms_cold']:.3f} on the device, cold; general form "
+                        f"{v['general_device_ms_cold']:.3f}; plain {v['plain_ms']:.1f}) "
                         f"against {v['bound_ms']:.3f}" for p, v in paths.items()))
     return rows
 
@@ -1931,7 +2008,7 @@ def phase_large_chain():
     if stats["noise_budget_rotated"] <= 1000 or not np.array_equal(
             ctx.decode(ctx.decrypt(sk, rot)), expect):
         raise AssertionError(f"58-limb rotation wrong or noisy ({stats['noise_budget_rotated']} bits)")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in PATH_KERNELS + TOP_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the 58-limb chain: {launches}")
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"large preset (a): N=65536, 58 limbs, t={ctx.t}: encrypt, decrypt, device galois key, "
@@ -1963,7 +2040,7 @@ def phase_rotation_32768():
     if not np.array_equal(ctx.decode(ctx.decrypt(sk, rot)),
                           np.roll(v.reshape(2, half), 1, axis=1).reshape(-1)):
         raise AssertionError("rotate_rows at N=32768 gives the wrong vector")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in PATH_KERNELS + TOP_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch at N=32768: {launches}")
     stats = {"limbs": ctx.k, "rotate_s": rotate_s, "noise_budget_rotated": ctx.noise_budget(sk, rot)}
     log(f"N=32768: default_context ({ctx.k} limbs), rotate_rows(-1) right; launches {launches}; "
@@ -2022,7 +2099,7 @@ def phase_large_keystream():
         torch.cuda.synchronize()
         stats["first_block_s"] = time.perf_counter() - t0
     launches = launch_counts()
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in PATH_KERNELS + TOP_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the large keystream: {launches}")
     if not keystream_right(ctx, sk, key, ks):
         raise AssertionError("N=65536 keystream block differs from the plain PASTA keystream")

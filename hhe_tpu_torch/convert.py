@@ -37,7 +37,7 @@ def public_key(pk) -> PublicKey:
 
 
 def kswitch_key(ksk, device) -> KSwitchKey:
-    return KSwitchKey(to_torch(ksk.k0, device), to_torch(ksk.k1, device))
+    return KSwitchKey.of(to_torch(ksk.k0, device), to_torch(ksk.k1, device))
 
 
 def galois_keys(gks, device) -> Dict[int, KSwitchKey]:

@@ -16,30 +16,53 @@
 //   t = hi(a b) + hi(m q) + (lo(a b) != 0),  m = lo(a b) qinv mod 2^32,
 // in [0, 2q) whenever a b < q 2^32, the same formula and the same bits as
 // the plain version.  K3 returns t (lazy) or t reduced once to [0, q)
-// (eager).  K4 sums the terms t_d of one output word over the reduction
-// axis, folding the sum back below 2q after each term, and reduces it once
-// at the end: modular addition is exact, so any order of summation gives
-// the bits of the plain version's log-depth tree of eager sums.
+// (eager).  Modular addition is exact, so K4 may sum its terms in any order
+// and by any exact means: every form ends in the canonical residue in
+// [0, q) that the plain version's log-depth tree of eager sums gives.
 //
 // Layout.  The wrapper (ops/mod_kernels.py) hands over the output's shape
-// collapsed to MAXD dimensions (leading ones of size 1), and for each of the
-// four operands a, b, q, qinv its element strides over those dimensions
-// (0 where it is broadcast, never materialised) and along the reduction
-// axis, or a scalar.  The output is contiguous.  A block takes one output
-// row (all dimensions but the last) and 1024 (2048) words of it; a thread
-// holds 4 words 256 apart or, where every operand that runs along the
-// innermost axis does so contiguously and 16-byte aligned, two groups of 4
-// consecutive words taken with 16-byte loads and stores 1024 apart.  A
-// warp's accesses of the innermost axis coalesce either way, and K4's
-// running sums stay in registers while the thread walks the reduction axis.
+// collapsed to MAXD dimensions, the output's strides over them, and for each
+// of the four operands its element strides over those dimensions (0 where it
+// is broadcast, never materialised) and along the reduction axis, or a
+// scalar.  A warp's accesses of the innermost axis coalesce, with 16-byte
+// loads and stores where every operand that runs along it does so
+// contiguously and 16-byte aligned (the vector path), else one word a
+// thread.  The wrapper picks the threads a block so that a launch has at
+// least two blocks an SM wherever the output allows.
 //
-// What bounds it.  Each term costs three 32-bit integer multiplies (the
-// wide product, m, hi(m q)) against 8-12 bytes of operands, far below the
-// card's ratio of integer issue to memory bandwidth: both kernels are bound
-// by the bytes of their operands and output, read and written once.  The
-// JAX package's key contraction at production shapes reads ~0.74 GB of keys
-// per call, which is what K4 streams at the site that dominates.  Tensor
-// cores are no help for exact 31-bit modular products.
+// K4 has four forms (the wrapper's `plan` picks one per layout):
+// - general (the one-pass loop): a block takes one output row and 8 (4) words
+//   of it a thread, a thread two groups of 4 consecutive words (four single
+//   words); each thread walks the reduction axis with its sums in
+//   registers, folding them below 2q after each term.  Where an operand is
+//   broadcast over an output axis, it is read again for every output along
+//   that axis: from L2 if it fits there, from HBM if it does not.
+// - fanout: where one operand (S, operand 0 here) is broadcast over an
+//   output axis (the fan-out, dimension 0 here) along which the other (W)
+//   varies -- the BSGS key contraction's 31 babysteps times its k0/k1 pair,
+//   a key-switch's k0/k1 pair, the BSGS plaintext sums' giantsteps -- a
+//   block stages its tile of S, `terms` x tile words, in shared memory
+//   once, then walks the fan-out streaming only W: S leaves HBM once a
+//   launch.  A thread reads back only the words it staged, so no barrier
+//   is needed.  W's loads are issued UNROLL terms at a time (4 x 16 bytes in
+//   flight a thread).  Terms are hi(a b) - hi(m q) + q with m = lo(a b) q^-1
+//   (no compare), summed exactly in u64 and reduced once an output word.
+//   Where the fan-out is at most FAN_REG and the staged tile would not fit
+//   128-thread blocks in 48 KB (the BSGS plaintext sums' 32 terms), the
+//   sums stay in registers instead and nothing is staged (fanout_regs).
+// - table: the fan-out form where W is constant along the innermost axis (a
+//   base conversion's ka x kc constants, broadcast over words).  The block
+//   loads the constants once into shared memory as Shoup pairs
+//   (w = W mod q, floor(w 2^32 / q)); a term is then three 32-bit multiplies
+//   and a 64-bit add (a w - floor(a w' / 2^32) q in [0, 2q) for any a <
+//   2^32), and one REDC of the u64 sum gives sum_t a_t W_t 2^-32 mod q,
+//   the plain version's residue.
+//
+// What bounds it.  Each term costs three 32-bit integer multiplies against
+// 4-12 bytes of operands.  The general and fanout forms
+// are bound by the bytes of their operands and output, read and written
+// once; the table form streams no operand per term and is bound by its
+// multiplies.  Tensor cores are no help for exact 31-bit modular products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,9 +70,15 @@
 namespace {
 
 constexpr int MAXD = 6;        // output dimensions after the wrapper's collapse
-constexpr int NOPS = 4;        // a, b, q, qinv
-constexpr int THREADS = 256;
-constexpr int DESC_WORDS = 5 + NOPS * (4 + MAXD) + MAXD;
+constexpr int NOPS = 4;        // a (or S), b (or W), q, qinv
+constexpr int MAX_THREADS = 256;
+constexpr int HEAD = 7;        // out, out64, lazy, terms, vec, form, threads
+constexpr int DESC_WORDS = HEAD + NOPS * (4 + MAXD) + 2 * MAXD;
+constexpr int UNROLL = 4;      // terms whose streamed loads a thread has in flight at once
+constexpr int FAN_REG = 4;     // the most outputs FANOUT_REGS keeps sums of in registers
+constexpr int SMEM_MAX = 227 * 1024;
+
+enum Form { GENERAL = 0, FANOUT = 1, TABLE = 2, FANOUT_REGS = 3 };
 
 struct Operand {
   const void* ptr;             // null: the scalar
@@ -63,8 +92,9 @@ struct Args {
   Operand op[NOPS];
   void* out;
   long long terms;             // length of the reduction axis; 1 for K3
-  long long rows;              // product of size[0 .. MAXD - 2]
+  long long rows;              // general: product of size[0 .. MAXD - 2]; fan-out: of size[1 .. MAXD - 2]
   unsigned int size[MAXD];
+  long long ostride[MAXD];     // the output's element strides
   int out64;
   int lazy;                    // K3 only: leave [0, 2q)
 };
@@ -101,6 +131,42 @@ __device__ __forceinline__ void load_words(const Operand& o, long long i, uint32
   }
 }
 
+// V words to / from this thread's slot of the shared tile (16 bytes at once for V = 4)
+template <int V>
+__device__ __forceinline__ void put_words(uint32_t* p, const uint32_t (&v)[V]) {
+  if (V == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[V > 1 ? 1 : 0], v[V > 2 ? 2 : 0], v[V > 3 ? 3 : 0]);
+  else
+    p[0] = v[0];
+}
+
+template <int V>
+__device__ __forceinline__ void get_words(const uint32_t* p, uint32_t (&v)[V]) {
+  if (V == 4) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    v[0] = x.x;
+    v[V > 1 ? 1 : 0] = x.y;
+    v[V > 2 ? 2 : 0] = x.z;
+    v[V > 3 ? 3 : 0] = x.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// V output words at element i (16 bytes at once for V = 4 into int32)
+template <int V>
+__device__ __forceinline__ void store_words(const Args& g, long long i, const uint32_t (&v)[V]) {
+  if (g.out64) {
+#pragma unroll
+    for (int w = 0; w < V; ++w) static_cast<long long*>(g.out)[i + w] = static_cast<long long>(v[w]);
+  } else if (V == 4) {
+    *reinterpret_cast<int4*>(static_cast<int*>(g.out) + i) =
+        make_int4(v[0], v[V > 1 ? 1 : 0], v[V > 2 ? 2 : 0], v[V > 3 ? 3 : 0]);
+  } else {
+    static_cast<int*>(g.out)[i] = static_cast<int>(v[0]);
+  }
+}
+
 // a b 2^-32 mod q in [0, 2q) when a b < q 2^32 (the plain version's _redc)
 __device__ __forceinline__ uint64_t redc(uint32_t a, uint32_t b, uint32_t q, uint32_t qinv) {
   const uint64_t ab = static_cast<uint64_t>(a) * b;
@@ -109,12 +175,57 @@ __device__ __forceinline__ uint64_t redc(uint32_t a, uint32_t b, uint32_t q, uin
   return (ab >> 32) + __umulhi(m, q) + (lo != 0u ? 1u : 0u);
 }
 
-// A thread takes GROUPS groups of W consecutive words, THREADS * W words
-// apart.  W = 4: every group is 16-byte aligned and inner % 4 == 0 (the
-// wrapper checks), so a group lies wholly inside the row or outside it.
+// a b 2^-32 mod q in (0, 2q) when a b < q 2^32, as hi(a b) - hi(m q) + q with
+// m = lo(a b) q^-1 mod 2^32 (qpos = q^-1): lo(m q) = lo(a b), so the low
+// halves cancel exactly and no compare is needed
+__device__ __forceinline__ uint32_t mont_term(uint32_t a, uint32_t b, uint32_t q, uint32_t qpos) {
+  const uint64_t ab = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(ab) * qpos;
+  return static_cast<uint32_t>(ab >> 32) - __umulhi(m, q) + q;
+}
+
+// x mod q for x < 2^53 and q > 2 (qrec = 1 / q rounded): the quotient in
+// double precision is off by at most one
+__device__ __forceinline__ uint32_t mod_q(uint64_t x, uint32_t q, double qrec) {
+  const uint64_t quo = static_cast<uint64_t>(static_cast<double>(x) * qrec);
+  long long r = static_cast<long long>(x - quo * q);
+  if (r < 0)
+    r += q;
+  else if (r >= static_cast<long long>(q))
+    r -= q;
+  return static_cast<uint32_t>(r);
+}
+
+// x 2^-32 mod q in [0, q) for x < q 2^32 (REDC of a u64 sum; qinv = -q^-1)
+__device__ __forceinline__ uint32_t redc64(uint64_t x, uint32_t q, uint32_t qinv) {
+  const uint32_t m = static_cast<uint32_t>(x) * qinv;
+  const uint64_t t = (x + static_cast<uint64_t>(m) * q) >> 32;
+  return static_cast<uint32_t>(t >= q ? t - q : t);
+}
+
+// The offsets of row `row` of dimensions 1 .. MAXD - 2 (the fan-out forms)
+__device__ __forceinline__ void fan_row(const Args& g, long long row, long long (&off)[NOPS],
+                                        long long& ooff) {
+  unsigned int r = static_cast<unsigned int>(row);
+#pragma unroll
+  for (int d = MAXD - 2; d >= 1; --d) {
+    if (g.size[d] > 1) {
+      const unsigned int c = r % g.size[d];
+      r /= g.size[d];
+#pragma unroll
+      for (int o = 0; o < NOPS; ++o) off[o] += c * g.op[o].stride[d];
+      ooff += c * g.ostride[d];
+    }
+  }
+}
+
+// The general form (and K3).  A thread takes GROUPS groups of W consecutive
+// words, blockDim.x * W words apart.  W = 4: every group is 16-byte aligned
+// and inner % 4 == 0 (the wrapper checks), so a group lies wholly inside the
+// row or outside it.
 template <int W, int GROUPS>
-__global__ void __launch_bounds__(THREADS) mont_kernel(const Args g) {
-  constexpr long long SPAN = static_cast<long long>(THREADS) * W;  // words between a thread's loads
+__global__ void __launch_bounds__(MAX_THREADS) mont_kernel(const Args g) {
+  const long long SPAN = static_cast<long long>(blockDim.x) * W;  // words between a thread's loads
   const unsigned int inner = g.size[MAXD - 1];
   const long long j0 = static_cast<long long>(blockIdx.x) * (SPAN * GROUPS) + threadIdx.x * W;
   for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
@@ -181,29 +292,234 @@ __global__ void __launch_bounds__(THREADS) mont_kernel(const Args g) {
           uint64_t x = acc[e][w];
           if (!g.lazy && x >= q[e][w]) x -= q[e][w];
           v[w] = static_cast<uint32_t>(x);
-          if (g.out64) static_cast<long long*>(g.out)[row * inner + j + w] = static_cast<long long>(x);
         }
-        if (!g.out64) {
-          int* out = static_cast<int*>(g.out) + row * inner + j;
-          if (W == 4)
-            *reinterpret_cast<int4*>(out) = make_int4(v[0], v[1], v[2], v[3]);
-          else
-            out[0] = static_cast<int>(v[0]);
-        }
+        store_words<W>(g, row * inner + j, v);
       }
     }
   }
+}
+
+// floor(w 2^32 / q) for w < q < 2^31 (Shoup's companion of w): a quotient
+// in double precision, corrected by one
+__device__ __forceinline__ uint32_t shoup_companion(uint32_t w, uint32_t q) {
+  const uint64_t x = static_cast<uint64_t>(w) << 32;
+  uint64_t c = static_cast<uint64_t>(static_cast<double>(x) * __drcp_rn(static_cast<double>(q)));
+  const long long r = static_cast<long long>(x - c * q);
+  if (r < 0)
+    --c;
+  else if (r >= static_cast<long long>(q))
+    ++c;
+  return static_cast<uint32_t>(c);
+}
+
+// a w mod q in [0, 2q) for w < q and wp = floor(w 2^32 / q), any a < 2^32 (Shoup)
+__device__ __forceinline__ uint32_t shoup_term(uint32_t a, uint32_t w, uint32_t wp, uint32_t q) {
+  return a * w - __umulhi(a, wp) * q;
+}
+
+// The fanout and table forms of K4.  Operand 0 (S) is broadcast over
+// dimension 0 (the fan-out, F = size[0]), operand 1 (W) varies along it; q
+// and qinv are constant along the innermost axis.  A block takes one row of
+// dimensions 1 .. MAXD - 2 and blockDim.x * V words of the innermost axis
+// (a one-dimensional grid, rows fastest, so that blocks that re-read W's
+// tile -- rows W is broadcast over, the fastest of them -- run together and
+// find it in L2); it stages S's `terms` x V words a thread in shared memory
+// (a slot no other thread reads), then for each of the F outputs sums the
+// terms against W.
+// TAB: W is constant along the innermost axis; the block loads its F x
+// terms values into shared memory as Shoup pairs, with the F moduli, for
+// each (row, tile) it takes (one, unless the grid's 2^30 blocks run out).
+template <int V, bool TAB>
+__global__ void __launch_bounds__(MAX_THREADS) mont_fan_kernel(const Args g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int nthr = blockDim.x;
+  const int terms = static_cast<int>(g.terms);
+  const unsigned int F = g.size[0];
+  const unsigned int inner = g.size[MAXD - 1];
+  const Operand& S = g.op[0];
+  const Operand& W = g.op[1];
+  const Operand& Q = g.op[2];
+  const Operand& QI = g.op[3];
+  const int tstride = nthr * V;                       // words between a thread's terms
+  uint32_t* const mine = smem + threadIdx.x * V;      // term t at mine[t * tstride]
+  uint2* const tab = reinterpret_cast<uint2*>(smem + terms * tstride);  // [F][terms] (w, w')
+  uint2* const qtab = tab + F * terms;                                   // [F] (q, qinv)
+  const long long tiles = (inner + tstride - 1) / tstride;
+
+  for (long long blk = blockIdx.x; blk < g.rows * tiles; blk += gridDim.x) {
+    const long long j = (blk / g.rows) * tstride + threadIdx.x * V;
+    const bool active = j < inner;
+    long long off[NOPS] = {0, 0, 0, 0};
+    long long ooff = j;
+    fan_row(g, blk % g.rows, off, ooff);
+    if (active) {
+      const long long s0 = off[0] + j * S.stride[MAXD - 1];
+      int t = 0;
+      for (; t + UNROLL <= terms; t += UNROLL) {
+        uint32_t v[UNROLL][V];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) load_words<V>(S, s0 + (t + u) * S.rstride, v[u]);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) put_words<V>(mine + (t + u) * tstride, v[u]);
+      }
+      for (; t < terms; ++t) {
+        uint32_t v[V];
+        load_words<V>(S, s0 + t * S.rstride, v);
+        put_words<V>(mine + t * tstride, v);
+      }
+    }
+    if (TAB) {
+      __syncthreads();  // every thread is done with the previous table
+      for (int e = threadIdx.x; e < static_cast<int>(F) * terms; e += nthr) {
+        const int f = e / terms, t = e - f * terms;
+        const uint32_t q = load(Q, off[2] + f * Q.stride[0]);
+        const uint32_t w = load(W, off[1] + f * W.stride[0] + t * W.rstride) % q;
+        tab[e] = make_uint2(w, shoup_companion(w, q));
+      }
+      for (int f = threadIdx.x; f < static_cast<int>(F); f += nthr)
+        qtab[f] = make_uint2(load(Q, off[2] + f * Q.stride[0]), load(QI, off[3] + f * QI.stride[0]));
+      __syncthreads();
+    }
+    if (!active) continue;
+    for (unsigned int f = 0; f < F; ++f) {
+      uint64_t acc[V];
+#pragma unroll
+      for (int w = 0; w < V; ++w) acc[w] = 0;
+      uint32_t res[V];
+      if (TAB) {
+        const uint2 qq = qtab[f];
+        const uint2* tf = tab + f * terms;
+#pragma unroll 4
+        for (int t = 0; t < terms; ++t) {
+          uint32_t s[V];
+          get_words<V>(mine + t * tstride, s);
+          const uint2 c = tf[t];
+#pragma unroll
+          for (int w = 0; w < V; ++w) acc[w] += shoup_term(s[w], c.x, c.y, qq.x);
+        }
+#pragma unroll
+        for (int w = 0; w < V; ++w) res[w] = redc64(acc[w], qq.x, qq.y);
+      } else {
+        const uint32_t q = load(Q, off[2] + f * Q.stride[0]);
+        const uint32_t qpos = 0u - load(QI, off[3] + f * QI.stride[0]);
+        const long long w0 = off[1] + f * W.stride[0] + j * W.stride[MAXD - 1];
+        int t = 0;
+        for (; t + UNROLL <= terms; t += UNROLL) {
+          uint32_t v[UNROLL][V];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) load_words<V>(W, w0 + (t + u) * W.rstride, v[u]);
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            uint32_t s[V];
+            get_words<V>(mine + (t + u) * tstride, s);
+#pragma unroll
+            for (int w = 0; w < V; ++w) acc[w] += mont_term(s[w], v[u][w], q, qpos);
+          }
+        }
+        for (; t < terms; ++t) {
+          uint32_t v[V], s[V];
+          load_words<V>(W, w0 + t * W.rstride, v);
+          get_words<V>(mine + t * tstride, s);
+#pragma unroll
+          for (int w = 0; w < V; ++w) acc[w] += mont_term(s[w], v[w], q, qpos);
+        }
+        const double qrec = __drcp_rn(static_cast<double>(q));
+#pragma unroll
+        for (int w = 0; w < V; ++w) res[w] = mod_q(acc[w], q, qrec);
+      }
+      store_words<V>(g, ooff + f * g.ostride[0], res);
+    }
+  }
+}
+
+// The fanout form for a fan-out of at most FAN_REG outputs whose staged
+// tile would not fit (form FANOUT_REGS): nothing staged.  A thread loads
+// each term's S words once and multiplies them into all F sums, kept in
+// registers, with the term's 1 + F loads in flight.
+template <int V>
+__global__ void __launch_bounds__(MAX_THREADS, 2) mont_fan_reg_kernel(const Args g) {
+  const int terms = static_cast<int>(g.terms);
+  const int F = static_cast<int>(g.size[0]);
+  const unsigned int inner = g.size[MAXD - 1];
+  const Operand& S = g.op[0];
+  const Operand& W = g.op[1];
+  const int tstride = blockDim.x * V;
+  const long long tiles = (inner + tstride - 1) / tstride;
+
+  for (long long blk = blockIdx.x; blk < g.rows * tiles; blk += gridDim.x) {
+    const long long j = (blk / g.rows) * tstride + threadIdx.x * V;
+    if (j >= inner) continue;
+    long long off[NOPS] = {0, 0, 0, 0};
+    long long ooff = j;
+    fan_row(g, blk % g.rows, off, ooff);
+    uint32_t q[FAN_REG], qpos[FAN_REG];
+    uint64_t acc[FAN_REG][V];
+#pragma unroll
+    for (int f = 0; f < FAN_REG; ++f) {
+      q[f] = f < F ? load(g.op[2], off[2] + f * g.op[2].stride[0]) : 1u;
+      qpos[f] = f < F ? 0u - load(g.op[3], off[3] + f * g.op[3].stride[0]) : 1u;
+#pragma unroll
+      for (int w = 0; w < V; ++w) acc[f][w] = 0;
+    }
+    const long long s0 = off[0] + j * S.stride[MAXD - 1];
+    const long long w0 = off[1] + j * W.stride[MAXD - 1];
+    for (int t = 0; t < terms; ++t) {
+      uint32_t s[V], v[FAN_REG][V];
+      load_words<V>(S, s0 + t * S.rstride, s);
+#pragma unroll
+      for (int f = 0; f < FAN_REG; ++f)
+        if (f < F) load_words<V>(W, w0 + f * W.stride[0] + t * W.rstride, v[f]);
+#pragma unroll
+      for (int f = 0; f < FAN_REG; ++f) {
+        if (f < F) {
+#pragma unroll
+          for (int w = 0; w < V; ++w) acc[f][w] += mont_term(s[w], v[f][w], q[f], qpos[f]);
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < FAN_REG; ++f) {
+      if (f < F) {
+        const double qrec = __drcp_rn(static_cast<double>(q[f]));
+        uint32_t res[V];
+#pragma unroll
+        for (int w = 0; w < V; ++w) res[w] = mod_q(acc[f][w], q[f], qrec);
+        store_words<V>(g, ooff + f * g.ostride[0], res);
+      }
+    }
+  }
+}
+
+// shared memory a fan-out block needs
+long long fan_smem(int form, long long terms, long long fan, int threads, int v) {
+  if (form == FANOUT_REGS) return 0;
+  return 4 * terms * threads * v + (form == TABLE ? 8 * fan * terms + 8 * fan : 0);
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, int threads, long long smem, cudaStream_t st, const Args& g) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, static_cast<size_t>(smem), st>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// desc (DESC_WORDS int64): out, out64, lazy, terms, vec; then for a, b, q,
-// qinv: ptr (0: scalar), is64, scalar, rstride, stride[MAXD]; then
-// size[MAXD].  vec: every operand that runs along the innermost axis does so
-// contiguously from a 16-byte aligned word, with outer and reduction strides
-// that are multiples of 4, and size[MAXD - 1] % 4 == 0 (the wrapper checks).
+// desc (DESC_WORDS int64): out, out64, lazy, terms, vec, form, threads;
+// then for operands 0-3: ptr (0: scalar), is64, scalar, rstride,
+// stride[MAXD]; then size[MAXD], then the output's ostride[MAXD].  vec:
+// every operand that runs along the innermost axis does so contiguously
+// from a 16-byte aligned word, with outer and reduction strides that are
+// multiples of 4, and size[MAXD - 1] % 4 == 0 (the wrapper checks).
+// General form (and K3): operands a, b, q, qinv, the output contiguous over
+// size.  Fan-out forms: operand 0 is broadcast over dimension 0, which
+// operand 1 varies along; q and qinv constant along the innermost axis.
 // Launches on `device` and leaves the caller's current device as it was.
 int hhe_mont(const long long* desc, int device, void* stream) {
   Args g;
@@ -212,7 +528,9 @@ int hhe_mont(const long long* desc, int device, void* stream) {
   g.lazy = static_cast<int>(desc[2]);
   g.terms = desc[3];
   const bool vec = desc[4] != 0;
-  const long long* p = desc + 5;
+  const int form = static_cast<int>(desc[5]);
+  const int threads = static_cast<int>(desc[6]);
+  const long long* p = desc + HEAD;
   for (int o = 0; o < NOPS; ++o, p += 4 + MAXD) {
     g.op[o].ptr = reinterpret_cast<const void*>(p[0]);
     g.op[o].is64 = static_cast<int>(p[1]);
@@ -224,25 +542,47 @@ int hhe_mont(const long long* desc, int device, void* stream) {
   for (int d = 0; d < MAXD; ++d) {
     if (p[d] < 1 || p[d] >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
     g.size[d] = static_cast<unsigned int>(p[d]);
-    if (d < MAXD - 1) g.rows *= p[d];
+    g.ostride[d] = p[MAXD + d];
+    if (d < MAXD - 1 && (form == GENERAL || d > 0)) g.rows *= p[d];
   }
+  const bool fan = form != GENERAL;
   if (g.rows >= (1LL << 31) || g.terms < 1 || (g.lazy && g.terms != 1) ||
-      (vec && g.size[MAXD - 1] % 4 != 0))
+      (vec && g.size[MAXD - 1] % 4 != 0) || form < GENERAL || form > FANOUT_REGS ||
+      (form == FANOUT_REGS && g.size[0] > FAN_REG) ||
+      threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
+      (fan && (g.lazy || g.terms >= (1LL << 20) || g.op[0].ptr == nullptr ||
+               g.op[0].stride[0] != 0 || g.op[2].stride[MAXD - 1] != 0 ||
+               g.op[3].stride[MAXD - 1] != 0 ||
+               (form == TABLE) != (g.op[1].stride[MAXD - 1] == 0))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int v = vec ? 4 : 1;
+  const long long smem = fan ? fan_smem(form, g.terms, g.size[0], threads, v) : 0;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
 
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_block = static_cast<long long>(THREADS) * (vec ? 4 * 2 : 4);
-  const dim3 grid(static_cast<unsigned int>((g.size[MAXD - 1] + per_block - 1) / per_block),
-                  static_cast<unsigned int>(g.rows < 65535 ? g.rows : 65535));
+  const long long per_block = static_cast<long long>(threads) * (fan ? v : (vec ? 4 * 2 : 4));
+  const long long tiles = (g.size[MAXD - 1] + per_block - 1) / per_block;
+  const long long blocks = g.rows * tiles;
+  const dim3 grid = fan ? dim3(static_cast<unsigned int>(blocks < (1LL << 30) ? blocks : (1LL << 30)))
+                        : dim3(static_cast<unsigned int>(tiles),
+                               static_cast<unsigned int>(g.rows < 65535 ? g.rows : 65535));
   const auto st = static_cast<cudaStream_t>(stream);
-  if (vec)
-    mont_kernel<4, 2><<<grid, THREADS, 0, st>>>(g);
+  if (form == FANOUT_REGS)
+    err = vec ? launch(mont_fan_reg_kernel<4>, grid, threads, 0, st, g)
+              : launch(mont_fan_reg_kernel<1>, grid, threads, 0, st, g);
+  else if (form == FANOUT)
+    err = vec ? launch(mont_fan_kernel<4, false>, grid, threads, smem, st, g)
+              : launch(mont_fan_kernel<1, false>, grid, threads, smem, st, g);
+  else if (form == TABLE)
+    err = vec ? launch(mont_fan_kernel<4, true>, grid, threads, smem, st, g)
+              : launch(mont_fan_kernel<1, true>, grid, threads, smem, st, g);
   else
-    mont_kernel<1, 4><<<grid, THREADS, 0, st>>>(g);
-  int rc = static_cast<int>(cudaGetLastError());
+    err = vec ? launch(mont_kernel<4, 2>, grid, threads, 0, st, g)
+              : launch(mont_kernel<1, 4>, grid, threads, 0, st, g);
+  int rc = static_cast<int>(err);
   if (prev != device) {
     err = cudaSetDevice(prev);
     if (rc == 0) rc = static_cast<int>(err);

@@ -88,10 +88,23 @@ class PublicKey(NamedTuple):
 
 class KSwitchKey(NamedTuple):
     """Key-switch key: digits over data primes, each encrypting
-    P * u_j * target over base q ∪ {P}; NTT + Montgomery domain."""
+    P * u_j * target over base q ∪ {P}; NTT + Montgomery domain.  Its two
+    halves are held as one tensor, so that one K4 launch reads the digits
+    once for both (``bfv_eval.hoisted_ks_products``)."""
 
-    k0: torch.Tensor  # [kd, k+1, N] int32
-    k1: torch.Tensor  # [kd, k+1, N] int32
+    pair: torch.Tensor  # [2, kd, k+1, N] int32: k0, k1
+
+    @classmethod
+    def of(cls, k0: torch.Tensor, k1: torch.Tensor) -> "KSwitchKey":
+        return cls(torch.stack([k0, k1]))
+
+    @property
+    def k0(self) -> torch.Tensor:  # [kd, k+1, N]
+        return self.pair[0]
+
+    @property
+    def k1(self) -> torch.Tensor:
+        return self.pair[1]
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +353,7 @@ class Context:
         as_ = modular.mont_mul(fa, ntt.to_mont(fs, tb), q, qi)
         payload = modular.mont_mul(ft[None], self._ks_factor_mont(), q, qi)
         k0 = modular.sub_mod(payload, modular.add_mod(as_, fe, q), q)
-        return KSwitchKey(ntt.to_mont(k0, tb), ntt.to_mont(fa, tb))
+        return KSwitchKey(ntt.to_mont(torch.stack([k0, fa]), tb))
 
     def keygen_relin(self, sk: SecretKey) -> KSwitchKey:
         """Relinearization key: target = s^2."""
@@ -426,7 +439,7 @@ class Context:
             as_f = modular.mont_mul(fa, fs_mont, q, qi)
             payload = modular.mont_mul(tf[None], factor, q, qi)
             k0 = modular.sub_mod(payload, modular.add_mod(as_f, fe, q), q)
-            ksk = KSwitchKey(ntt.to_mont(k0, tb), ntt.to_mont(fa, tb))
+            ksk = KSwitchKey(ntt.to_mont(torch.stack([k0, fa]), tb))
             if lab == "relin":
                 out_rk = ksk
             else:

@@ -58,9 +58,8 @@ class EvalConsts(NamedTuple):
     t_mont_q: torch.Tensor  # [k,1]
     t_mont_bsk: torch.Tensor  # [kb+1,1]
     qinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(Q^-1 mod b)
-    # Shenoy-Kumaresan Bsk -> q
-    fbc_b_to_q: rns.FBC
-    fbc_b_to_msk: rns.FBC
+    # Shenoy-Kumaresan Bsk -> q: one conversion to q ∪ {m_sk} (m_sk last)
+    fbc_b_to_q_msk: rns.FBC
     binv_msk_mont: torch.Tensor  # [1,1] Mont(B^-1 mod m_sk)
     msk: int
     msk_half: int
@@ -110,8 +109,7 @@ def _build_eval_consts(ctx: Context) -> EvalConsts:
         t_mont_q=_mont_col([ctx.t] * len(q_mods), q_mods, dev),
         t_mont_bsk=_mont_col([ctx.t] * len(bsk_mods), bsk_mods, dev),
         qinv_bsk_mont=_mont_col([pow(Q, -1, b) for b in bsk_mods], bsk_mods, dev),
-        fbc_b_to_q=rns.build_fbc(ctx.base_b, q_mods, dev),
-        fbc_b_to_msk=rns.build_fbc(ctx.base_b, (msk,), dev),
+        fbc_b_to_q_msk=rns.build_fbc(ctx.base_b, tuple(q_mods) + (msk,), dev),
         binv_msk_mont=_mont_col([pow(B, -1, msk)], (msk,), dev),
         msk=msk,
         msk_half=msk // 2,
@@ -204,12 +202,15 @@ def hoist_digits(ctx: Context, poly_q: torch.Tensor) -> torch.Tensor:
     return ntt.ntt_fwd(_digits(ctx, whole, 0, whole.shape[-2]), ctx.tb_qp)
 
 
-def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey):
-    """Inner products of (permuted) hoisted digits with one rotation's keys:
-    [..., k, k'+1, N] NTT digits -> (h0, h1) [..., k'+1, N] NTT over q ∪ P."""
-    ksk = ctx.take_key(ksk)
-    qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
-    return mont_mac(fd_perm, ksk.k0, qp, qpi, -3), mont_mac(fd_perm, ksk.k1, qp, qpi, -3)
+def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey,
+                        digits: slice = slice(None)) -> torch.Tensor:
+    """Inner products of (permuted) hoisted digits with one rotation's keys
+    (the key's rows ``digits``): [..., kd, k'+1, N] NTT digits -> [2, ...,
+    k'+1, N] NTT over q ∪ P, k0's product first; one K4 launch reads the
+    digits once for both."""
+    pair = ctx.take_key(ksk).pair[:, digits]
+    pair = pair.reshape(2, *([1] * (fd_perm.dim() - 3)), *pair.shape[1:])
+    return mont_mac(fd_perm, pair, ctx.tb_qp.q, ctx.tb_qp.qinv_neg, -3)
 
 
 def mod_down(ctx: Context, c: torch.Tensor) -> torch.Tensor:
@@ -236,22 +237,17 @@ def keyswitch(
     the regrouped accumulation is bit-identical."""
     kd = ctx.whole.k
     if digit_chunk is None or digit_chunk >= kd:
-        acc0, acc1 = hoisted_ks_products(ctx, hoist_digits(ctx, poly_q), ksk)
+        acc = hoisted_ks_products(ctx, hoist_digits(ctx, poly_q), ksk)
     else:
-        qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
-        ksk = ctx.take_key(ksk)
         poly_q = ctx.gather(poly_q)
-        acc0 = acc1 = None
+        acc = None
         for s in range(0, kd, digit_chunk):
             e = min(s + digit_chunk, kd)
             fd = ntt.ntt_fwd(_digits(ctx, poly_q, s, e), ctx.tb_qp)
-            p0 = mont_mac(fd, ksk.k0[s:e], qp, qpi, -3)
-            p1 = mont_mac(fd, ksk.k1[s:e], qp, qpi, -3)
-            acc0 = p0 if acc0 is None else add_mod(acc0, p0, qp)
-            acc1 = p1 if acc1 is None else add_mod(acc1, p1, qp)
-    c0 = ntt.ntt_inv(acc0, ctx.tb_qp)
-    c1 = ntt.ntt_inv(acc1, ctx.tb_qp)
-    return mod_down(ctx, c0), mod_down(ctx, c1)
+            part = hoisted_ks_products(ctx, fd, ksk, slice(s, e))
+            acc = part if acc is None else add_mod(acc, part, ctx.tb_qp.q)
+    d = mod_down(ctx, ntt.ntt_inv(acc, ctx.tb_qp))  # [2, ..., k', N]
+    return d[0], d[1]
 
 
 def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey) -> Ciphertext:
@@ -320,13 +316,13 @@ def _to_bsk(ctx: Context, x: torch.Tensor) -> torch.Tensor:
 def _bsk_to_q(ctx: Context, x_bsk: torch.Tensor) -> torch.Tensor:
     """Exact Shenoy-Kumaresan conversion [..., kb+1, N] Bsk -> [..., k, N] q."""
     ec = eval_consts(ctx)
+    f = ec.fbc_b_to_q_msk
     x_b = x_bsk[..., :-1, :]
     x_msk = x_bsk[..., -1:, :]
-    digs = rns.fbc_digits(x_b, ec.fbc_b_to_q)
-    y_q = rns.fbc_from_digits(digs, ec.fbc_b_to_q)
-    y_msk = rns.fbc_from_digits(digs, ec.fbc_b_to_msk)
-    msk_q = ec.fbc_b_to_msk.c_q
-    msk_qi = ec.fbc_b_to_msk.c_qinv
+    y = rns.fbc_apply(x_b, f)  # [..., k'+1, N]: every q row and m_sk, from one set of digits
+    y_q, y_msk = y[..., :-1, :], y[..., -1:, :]
+    msk_q = f.c_q[-1:]
+    msk_qi = f.c_qinv[-1:]
     alpha = mont_mul(
         sub_mod(y_msk, x_msk, msk_q), ec.binv_msk_mont, msk_q, msk_qi
     )  # [...,1,N] in [0, m_sk)

@@ -148,40 +148,38 @@ class Transcipher:
         sum_d sigma_j(fd_d) * K_{j,d} == sigma_j(sum_d fd_d * K'_{j,d}), so
         the hot path permutes the [k+1, N] contraction results instead of the
         [kd, k+1, N] digit tensors.  On a limb view only the rank's target
-        moduli and P of each key are kept: [k'+1, kd, N]."""
+        moduli and P of each key are kept: [k'+1, kd, N].  Each step's k0
+        and k1 are held as one [2, steps, k'+1, kd, N] tensor (``baby_k``,
+        ``giant_k``; ``baby_k0`` and the like are views of it), so that one
+        K4 launch contracts the digits with both."""
         ctx = self.ctx
         dev = ctx.device
 
         def inv_permuted(elt: int):
             src = bfv_eval.ntt_galois_src(ctx, elt)
             inv = torch.as_tensor(np.argsort(src), device=dev)
-            k = gks[elt]
-            # moduli-major [k+1, kd, N] layout
-            return (
-                ctx.take_qp(k.k0)[..., inv].transpose(0, 1).contiguous(),
-                ctx.take_qp(k.k1)[..., inv].transpose(0, 1).contiguous(),
-                src,
-            )
+            # moduli-major [2, k+1, kd, N] layout
+            return ctx.take_qp(gks[elt].pair)[..., inv].transpose(1, 2), src
 
         baby = [inv_permuted(ctx.galois_elt_from_step(-j)) for j in range(1, self.n1)]
-        self.baby_k0 = torch.stack([b[0] for b in baby])  # [n1-1, k+1, kd, N]
-        self.baby_k1 = torch.stack([b[1] for b in baby])
+        self.baby_k = torch.stack([b[0] for b in baby], dim=1)  # [2, n1-1, k+1, kd, N]
+        self.baby_k0, self.baby_k1 = self.baby_k
         ident = np.arange(ctx.n)
         # row 0 = identity: used for the rot_f0 fan-out (j = 0 term included)
         self.baby_srcs = torch.as_tensor(
-            np.stack([ident] + [b[2] for b in baby]), device=dev
+            np.stack([ident] + [b[1] for b in baby]), device=dev
         )  # [n1, N]
         giant = [
             inv_permuted(ctx.galois_elt_from_step(-k * self.n1))
             for k in range(1, self.n2)
         ]
         if not giant:  # n2 = 1: no giantsteps
-            self.giant_k0 = self.giant_k1 = None
+            self.giant_k = self.giant_k0 = self.giant_k1 = None
             self.giant_nsrc = self.giant_csrc = self.giant_csign = None
             return
-        self.giant_k0 = torch.stack([g[0] for g in giant])  # [n2-1, k+1, kd, N]
-        self.giant_k1 = torch.stack([g[1] for g in giant])
-        self.giant_nsrc = torch.as_tensor(np.stack([g[2] for g in giant]), device=dev)
+        self.giant_k = torch.stack([g[0] for g in giant], dim=1)  # [2, n2-1, k+1, kd, N]
+        self.giant_k0, self.giant_k1 = self.giant_k
+        self.giant_nsrc = torch.as_tensor(np.stack([g[1] for g in giant]), device=dev)
         csrc, csign = zip(
             *(ctx.galois_perm(ctx.galois_elt_from_step(-k * self.n1)) for k in range(1, self.n2))
         )
@@ -357,10 +355,9 @@ class Transcipher:
         base = (self.rk, self.gk_neg1, self.gk_t, self.gk_cols)
         if self.use_bsgs:
             return base + (
-                (self.baby_k0, self.baby_k1, self.baby_srcs),
+                (self.baby_k, self.baby_srcs),
                 (
-                    self.giant_k0,
-                    self.giant_k1,
+                    self.giant_k,
                     self.giant_nsrc,
                     self.giant_csrc,
                     self.giant_csign,
@@ -405,8 +402,8 @@ class Transcipher:
         n1, n2 = self.n1, self.n2
         mats_q, mats_qp = mats  # [T, k, N], [T, k+1, N]
         gk_t = keys[2]
-        baby_k0, baby_k1, baby_srcs = keys[4]
-        giant_k0, giant_k1, giant_nsrc, giant_csrc, giant_csign = keys[5]
+        baby_k, baby_srcs = keys[4]
+        giant_k, giant_nsrc, giant_csrc, giant_csign = keys[5]
         q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
         qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
 
@@ -423,12 +420,11 @@ class Transcipher:
 
         qpc, qpic = qp[:, None], qpi[:, None]  # the moduli on axis -3
 
-        def contract(fdig_t, k0s, k1s):  # over all kd digits (axis -2)
-            return (mont_mac(fdig_t, k0s, qpc, qpic, -2), mont_mac(fdig_t, k1s, qpc, qpic, -2))
+        def contract(fdig_t, ks):  # over all kd digits (axis -2), k0 and k1 in one launch
+            return mont_mac(fdig_t, ks, qpc, qpic, -2)
 
-        b0, b1 = contract(fd_t, baby_k0, baby_k1)  # [n1-1, k+1, N]
-        h0 = _take_rows(b0, baby_srcs[1:])
-        h1 = _take_rows(b1, baby_srcs[1:])
+        b = contract(fd_t, baby_k)  # [2, n1-1, k+1, N]
+        h = _take_rows(b.transpose(0, 1), baby_srcs[1:]).transpose(0, 1)  # H0, H1
 
         dq = mats_q.reshape(n2, n1, ctx.k, ctx.n)
         dqp = mats_qp.reshape(n2, n1, ctx.k + 1, ctx.n)
@@ -438,11 +434,10 @@ class Transcipher:
         acc1q = mont_mul(f1[None], dq[:, 0], q, qi)
 
         # P-part: acc*p[g] = sum_{j>=1} H*[j] * Dqp[g, j], lazily over q ∪ P
-        acc0p = mont_mac(h0[None], dqp[:, 1:], qp, qpi, 1)
-        acc1p = mont_mac(h1[None], dqp[:, 1:], qp, qpi, 1)
+        accp = mont_mac(h[:, None], dqp[:, 1:], qp, qpi, 2)  # [2, n2, k+1, N]
 
         iq = ntt.ntt_inv(torch.stack([acc0q, acc1q]), ctx.tb_q)  # [2, n2, k, N]
-        ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(torch.stack([acc0p, acc1p]), ctx.tb_qp))
+        ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(accp, ctx.tb_qp))
         i0 = add_mod(iq[0], ip[0], q)  # [n2, k, N]
         i1 = add_mod(iq[1], ip[1], q)
         if n2 == 1:
@@ -456,9 +451,8 @@ class Transcipher:
             out0 = add_mod(out0, p0[g], q)
 
         fdg = bfv_eval.hoist_digits(ctx, i1[1:])  # [n2-1, kd, k+1, N]
-        g0, g1 = contract(fdg.transpose(-3, -2), giant_k0, giant_k1)  # [n2-1, k+1, N]
-        hg0 = _take_rows(g0, giant_nsrc)
-        hg1 = _take_rows(g1, giant_nsrc)
+        g01 = contract(fdg.transpose(-3, -2), giant_k)  # [2, n2-1, k+1, N]
+        hg0, hg1 = _take_rows(g01.transpose(0, 1), giant_nsrc).transpose(0, 1)
         accp0, accp1 = hg0[0], hg1[0]
         for g in range(1, n2 - 1):
             accp0 = add_mod(accp0, hg0[g], qp)

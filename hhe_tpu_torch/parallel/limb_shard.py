@@ -9,12 +9,13 @@ contiguous block of k/d, and the view holds
 
 - tables: the NTT tables of L_r and of L_r ∪ {P}; the Bsk tables whole;
 - constants: the rank's rows of every ``EvalConsts`` column over q (and the
-  columns of the Bsk -> q conversion), the whole rest;
+  rank's q rows and m_sk of the Bsk -> q ∪ {m_sk} conversion), the whole
+  rest;
 - operands: ``take`` / ``take_qp`` / ``take_key`` take a whole-context
   [.., k, N] plaintext, a [.., k+1, N] tensor over q ∪ P and a key-switch key
-  [kd, k+1, N] to the rank's rows ([kd, |L_r|+1, N]: every digit, only the
-  rank's target moduli and P), and let a tensor that is already the rank's
-  pass;
+  [2, kd, k+1, N] to the rank's rows ([2, kd, |L_r|+1, N]: every digit, only
+  the rank's target moduli and P), and let a tensor that is already the
+  rank's pass;
 - gather: ``gather`` all-gathers a [.., |L_r|, N] tensor into [.., k, N]
   over the limb group (``mesh.gather_limbs``), counted in ``all_gathers``.
 
@@ -61,13 +62,14 @@ class LimbView:
         self.encoder_map = ctx.encoder_map
         self._ntt_perm_cache = ctx._ntt_perm_cache
         ec = bfv_eval.eval_consts(ctx)
-        f = ec.fbc_b_to_q
+        f = ec.fbc_b_to_q_msk
+        rows = list(range(lo, hi)) + [ctx.k]  # the rank's q rows and m_sk
         self._eval_consts = ec._replace(
             **{name: getattr(ec, name)[lo:hi] for name in _Q_ROWS},
-            fbc_b_to_q=rns.FBC(f.a_q, f.a_qinv, f.inv_mont, f.c_q[lo:hi], f.c_qinv[lo:hi],
-                               f.m_mont[:, lo:hi]),
+            fbc_b_to_q_msk=rns.FBC(f.a_q, f.a_qinv, f.inv_mont, f.c_q[rows], f.c_qinv[rows],
+                                   f.m_mont[:, rows]),
         )
-        self._keys: Dict[int, tuple] = {}  # id(whole k0) -> (whole key, rank's key)
+        self._keys: Dict[int, tuple] = {}  # id(whole pair) -> (whole key, rank's key)
         self.all_gathers = 0
         self.gathered_bytes = 0  # of the gathered [.., k, N] tensors
 
@@ -104,15 +106,15 @@ class LimbView:
         return torch.cat([x[..., self.limbs.start : self.limbs.stop, :], x[..., -1:, :]], -2)
 
     def take_key(self, ksk: bfv.KSwitchKey) -> bfv.KSwitchKey:
-        """A key-switch key [kd, k+1, N] -> its rank's rows [kd, |L_r|+1, N],
-        taken once a key and kept (the whole key is pinned, so that its id
-        is not reused while the entry lives)."""
-        if self._rows(ksk.k0, 1) == self.k + 1:
+        """A key-switch key [2, kd, k+1, N] -> its rank's rows [2, kd,
+        |L_r|+1, N], taken once a key and kept (the whole key is pinned, so
+        that its id is not reused while the entry lives)."""
+        if self._rows(ksk.pair, 1) == self.k + 1:
             return ksk
-        hit = self._keys.get(id(ksk.k0))
+        hit = self._keys.get(id(ksk.pair))
         if hit is None:
-            local = bfv.KSwitchKey(self.take_qp(ksk.k0).contiguous(), self.take_qp(ksk.k1).contiguous())
-            hit = self._keys[id(ksk.k0)] = (ksk, local)
+            local = bfv.KSwitchKey(self.take_qp(ksk.pair).contiguous())
+            hit = self._keys[id(ksk.pair)] = (ksk, local)
         return hit[1]
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:

@@ -117,7 +117,7 @@ def load_kswitch(buf, device) -> bfv.KSwitchKey:
     (la,) = struct.unpack_from("<I", buf, 0)
     k0, _ = load_array(buf, 4)
     k1, _ = load_array(buf, 4 + la)
-    return bfv.KSwitchKey(u32_to_torch(k0, device), u32_to_torch(k1, device))
+    return bfv.KSwitchKey.of(u32_to_torch(k0, device), u32_to_torch(k1, device))
 
 
 def dump_galois_keys(gks: dict) -> bytes:
