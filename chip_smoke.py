@@ -8,8 +8,9 @@ Phases (any failure propagates and the exit code is nonzero):
    whether ``grpc`` and ``google.protobuf`` import;
 1. build: compile the kernels from ``hhe_tpu_torch/csrc`` (``ntt.cu``: the
    NTT, K1 and K2; ``modarith.cu``: the Montgomery product K3 and
-   multiply-accumulate K4), one nvcc each, started together; a kernel
-   instance that spills registers fails;
+   multiply-accumulate K4, the modular add / sub / neg / reduction K5 and
+   the mod-down K6), one nvcc each, started together; a kernel instance
+   that spills registers fails;
 2. kernels: each NTT kernel against its plain PyTorch version
    (``torch.equal``) for 30-bit (lazy) and 31-bit (eager) moduli and t at
    every N = 2^5 ... 2^16 (each a kernel instance of its own; above 2^14 the
@@ -19,12 +20,15 @@ Phases (any failure propagates and the exit code is nonzero):
    and broadcast patterns of their sites at N = 16384 / 13 limbs and
    N = 65536 / 17 limbs, on operands holding 0, q - 1 and lazy [0, 2q)
    values, each K4 form (general, fanout, table, fanout_regs) launched,
-   aligned and not (``check_mont_sites``);
+   aligned and not (``check_mont_sites``); K5 (each op) and K6 against
+   theirs at their sites' shapes, broadcast patterns and dtype mixes, on
+   operands holding 0, q - 1 and (reduce) values near 2^31, aligned and not
+   (``check_elem_sites``);
 3. ECG path (the main path): ``build_stack`` at the production BFV
    parameters (N=16384, 13 x 30-bit limbs, device keygen), then
    ``hhe_ecg_inference`` on B=64 samples.  Predictions must equal the
    plaintext model's, one decomposed sample must decrypt to its input with
-   >= 40 bits of noise budget, and K1-K4 must have launched during the
+   >= 40 bits of noise budget, and K1-K6 must have launched during the
    run.  Then the timings: decompose at B=64 with a fresh nonce per rep
    (PASTA encryption outside the timed region), one keystream block, the FC
    product, the batched decrypt; and one keystream block under
@@ -65,7 +69,7 @@ Phases (any failure propagates and the exit code is nonzero):
    ``evaluateModelFromFile`` (then, for L=300, ``evaluateModel`` with the
    checkpoint split across repeated ``HHEDecomp`` entries) returns results
    that must decrypt to x @ w exactly, with predictions (x @ w > 0); the
-   three secret keys must differ and K1-K4 must launch; per-party ms
+   three secret keys must differ and K1-K6 must launch; per-party ms
    and per-edge MB, the decompose wall, evaluation ms a ciphertext, the
    key set's publish time, one result's noise budget, peak memory;
    4c. the CLI: ``python -m hhe_tpu_torch.parties.cli`` csp, analyst and
@@ -113,20 +117,22 @@ Phases (any failure propagates and the exit code is nonzero):
 7. kernels at the paths' shapes: every shape each path of phases 3-6 gave
    each NTT kernel, and every operand layout the ECG path, the MONT_TOP
    most-called layouts and every base conversion each other path gave K3
-   and K4, on random residues,
+   and K4, and every ECG layout and the MONT_TOP most-called of each other
+   path K5 and K6 were given, on random residues,
    against the plain version (``torch.equal``; above N = 16384 each NTT
    launch alone too), timed per call from Python (``ms``) and on the device
    alone (``device_ms``, a CUDA graph of launches) on one operand, and again
    cycling through copies that miss the L2 (``ms_cold``,
    ``device_ms_cold``), each beside its bound and (K3, K4) the plain
    version's ms; each K4 layout with the form it took and, for a fan-out
-   form, the general form's cold device time on the same copies;
+   form, the general form's cold device time on the same copies; each K5
+   reduction beside one ``torch.remainder`` call (the library time);
 8. one JSON line of every phase's numbers, the card's line, one JSON line
    with every kernel's launches per path, error, time, plain time and bound,
    per shape and summed per path, then the device line last.
 
 Each path's launch counts are set to 0 just before it and read just after;
-every path of phases 3-6 must launch K1-K4 (the top passes where N > 16384).
+every path of phases 3-6 must launch K1-K6 (the top passes where N > 16384).
 Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 """
 
@@ -235,8 +241,10 @@ def wall_s(fn) -> float:
 
 
 # the kernels every path of phases 3-6 must launch: K1, K2 (the NTT), K3 and
-# K4 (the Montgomery product and multiply-accumulate)
-PATH_KERNELS = ("ntt_fwd", "ntt_inv", "mont_mul", "mont_mac")
+# K4 (the Montgomery product and multiply-accumulate), K5 (the modular add /
+# sub / neg / reduction; every HE path) and K6 (the mod-down of every
+# key-switch; each of these paths has one)
+PATH_KERNELS = ("ntt_fwd", "ntt_inv", "mont_mul", "mont_mac", "mod_elem", "mod_down")
 # and, on rows longer than 16384 words, the NTT's top passes
 TOP_KERNELS = ("ntt_fwd_top", "ntt_inv_top")
 
@@ -252,7 +260,8 @@ def launch_counts() -> dict:
     from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
     return {**ntt_kernels.LAUNCHES, **mod_kernels.LAUNCHES,
-            **{f"mont_mac_{form}": n for form, n in mod_kernels.FORM_LAUNCHES.items()}}
+            **{f"mont_mac_{form}": n for form, n in mod_kernels.FORM_LAUNCHES.items()},
+            **{f"mod_elem_{op}": n for op, n in mod_kernels.OP_LAUNCHES.items()}}
 
 
 def phase_device():
@@ -313,6 +322,10 @@ def phase_build():
         for name, info in report.items():
             log(f"  ptxas: {name}: {info['registers']}")
         spills += [name for name, info in report.items() if info["spill_bytes"]]
+        if mod is mod_kernels and mod.BUILD_LOG.get("compiler_output") is not None:
+            for kernel in ("mont_kernel", "mont_fan_kernel", "mod_elem_kernel", "mod_down_kernel"):
+                if not any(kernel in name for name in report):
+                    raise AssertionError(f"ptxas reported no {kernel} instance")
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     log("  ptxas: no kernel spills")
@@ -360,6 +373,7 @@ def phase_kernels():
     if min(ntt_kernels.LAUNCHES.values()) == 0:
         raise AssertionError(f"a kernel did not launch in the kernel phase: {ntt_kernels.LAUNCHES}")
     check_mont_sites()
+    check_elem_sites()
 
 
 # (N, data limbs) of phase 2's K3 / K4 checks: the production chain and the
@@ -405,10 +419,8 @@ def mont_call(name, a, b, q, qi, dim):
 
 
 def mont_plain(name, a, b, q, qi, dim):
-    """The plain version of `name`, over slices of the broadcast shape's
-    outer axes (the reduction's aside) when the products are many: each
-    output word depends on its own products only, so the slices concatenate
-    to the whole."""
+    """The plain version of `name`, in slices where the products are many
+    (``sliced``)."""
     import torch
 
     from hhe_tpu_torch.ops import modular
@@ -416,23 +428,8 @@ def mont_plain(name, a, b, q, qi, dim):
     fn = {"mont_mul": modular.mont_mul_plain, "mont_mul_lazy": modular.mont_mul_lazy_plain,
           "mont_mac": lambda *x: modular.mont_mac_plain(*x, dim)}[name]
     ops = (a, b, q, qi)
-    full = torch.broadcast_shapes(*(x.shape for x in ops if isinstance(x, torch.Tensor)))
-    nd, words = len(full), int(np.prod(full))
-    red = None if dim is None else dim % nd
-    axes = [d for d in range(nd - 1) if d != red and full[d] > 1]
-    if words <= PLAIN_SLICE_WORDS or not axes:
-        return fn(*ops)
-    d = axes[0]
-    step = max(1, full[d] * PLAIN_SLICE_WORDS // words)
-
-    def cut(x, i):
-        if not isinstance(x, torch.Tensor) or x.ndim < nd - d or x.shape[d - nd] == 1:
-            return x
-        return x.narrow(d - nd, i, min(step, full[d] - i))
-
-    out_axis = d if red is None or d < red else d - 1
-    return torch.cat([mont_plain(name, *(cut(x, i) for x in ops), dim)
-                      for i in range(0, full[d], step)], dim=out_axis)
+    full = tuple(torch.broadcast_shapes(*(x.shape for x in ops if isinstance(x, torch.Tensor))))
+    return sliced(fn, ops, full, None if dim is None else dim % len(full))
 
 
 def check_mont_sites():
@@ -532,10 +529,179 @@ def check_mont_sites():
                 raise AssertionError(f"{name} differs from its plain version at {site}, n={n}")
             del got, want
         del sites, key, pair, lazy_in, wide_in
-    log(f"kernels: launches {mod_kernels.LAUNCHES}, K4 by form {mod_kernels.FORM_LAUNCHES}")
-    if min(mod_kernels.LAUNCHES.values()) == 0 or min(mod_kernels.FORM_LAUNCHES.values()) == 0:
+    counts = {k: mod_kernels.LAUNCHES[k] for k in ("mont_mul", "mont_mac")}
+    log(f"kernels: launches {counts}, K4 by form {mod_kernels.FORM_LAUNCHES}")
+    if min(counts.values()) == 0 or min(mod_kernels.FORM_LAUNCHES.values()) == 0:
         raise AssertionError(f"a kernel or form did not launch in the kernel phase: "
-                             f"{mod_kernels.LAUNCHES} {mod_kernels.FORM_LAUNCHES}")
+                             f"{counts} {mod_kernels.FORM_LAUNCHES}")
+
+
+def sliced(fn, ops, full, red=None):
+    """fn(*ops) over slices of the first axis of the broadcast shape `full`
+    (the reduced axis `red` aside) longer than one, when the words are many
+    (the plain versions' int64 temporaries take ~50 bytes a word); each
+    output word depends on its own operands only, so the slices concatenate
+    to the whole."""
+    import torch
+
+    nd, words = len(full), int(np.prod(full))
+    axes = [d for d in range(nd - 1) if d != red and full[d] > 1]
+    if words <= PLAIN_SLICE_WORDS or not axes:
+        return fn(*ops)
+    d = axes[0]
+    step = max(1, full[d] * PLAIN_SLICE_WORDS // words)
+
+    def cut(x, i):
+        if not isinstance(x, torch.Tensor) or x.ndim < nd - d or x.shape[d - nd] == 1:
+            return x
+        return x.narrow(d - nd, i, min(step, full[d] - i))
+
+    out_axis = d if red is None or d < red else d - 1
+    return torch.cat([sliced(fn, [cut(x, i) for x in ops],
+                             full[:d] + (min(step, full[d] - i),) + full[d + 1:], red)
+                      for i in range(0, full[d], step)], dim=out_axis)
+
+
+def elem_plain(op, a, b, q):
+    """K5's plain version: ``add_mod_plain`` / ``sub_mod_plain`` /
+    ``neg_mod_plain`` / ``reduce_u32_plain``, in slices where large."""
+    import torch
+
+    from hhe_tpu_torch.ops import modular, rns
+
+    fn = {"add": modular.add_mod_plain, "sub": modular.sub_mod_plain,
+          "neg": lambda a, b, q: modular.neg_mod_plain(a, q),
+          "reduce": lambda a, b, q: rns.reduce_u32_plain(a, q)}[op]
+    ops = [a, b, q]
+    full = tuple(torch.broadcast_shapes(*(x.shape for x in ops if isinstance(x, torch.Tensor))))
+    return sliced(fn, ops, full)
+
+
+def elem_call(op, a, b, q):
+    """K5 through the dispatching functions (CUDA tensors: the kernel)."""
+    from hhe_tpu_torch.ops import modular, rns
+
+    if op == "neg":
+        return modular.neg_mod(a, q)
+    if op == "reduce":
+        return rns.reduce_u32(a, q)
+    return {"add": modular.add_mod, "sub": modular.sub_mod}[op](a, b, q)
+
+
+def down_plain(c, *consts):
+    """K6's plain version, ``bfv_eval.mod_down_plain``, on the wrapper's
+    constants (q, qinv_neg, P mod q, Mont(P^-1), p_half), in slices where
+    large."""
+    from hhe_tpu_torch.ops import bfv_eval
+
+    return sliced(lambda cc: bfv_eval.mod_down_plain(cc, *consts), [c],
+                  tuple(c.shape[:-2]) + (1, c.shape[-1]))
+
+
+def check_elem_sites():
+    """Phase 2's K5 / K6 checks, on the production context (N = 16384, 13
+    limbs) and the large preset's keystream context (N = 65536,
+    LARGE_KS_LIMBS limbs): K5 (each op) against its plain version
+    (``torch.equal``) at the shapes, broadcast patterns and dtype mixes of
+    its sites -- the digit decomposition of a batch, of one ciphertext and
+    of a digit chunk (one limb to every modulus of q and P), the round
+    material's lift mod t to q and P, the reduction of values near 2^31,
+    ciphertext adds and subtracts (a batch, a plaintext, the finish's int64
+    fix, a broadcast first operand, over q and P, a 2FC tree's narrowed
+    halves, ``_bsk_to_q``'s view of y and its one-modulus subtract), negs
+    (a ciphertext, the giantsteps' rows view); K6 at a batch's key-switch
+    (k0/k1 stacked), one ciphertext's, a BSGS sum's, an int64 c and a
+    limb view's rows of the constants; each again on rows that are not
+    16-byte aligned (the word path).  Operands hold 0 and q - 1.  Every op
+    and both kernels must launch."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv, bfv_eval, mod_kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mod_kernels.reset_launches()
+    for params in (bfv.BFVParams(n=16384, data_limbs=13, seed=1),
+                   bfv.large_params(data_limbs=LARGE_KS_LIMBS, seed=1)):
+        ctx = bfv.Context(params)
+        n, k = ctx.n, ctx.k
+        ec = bfv_eval.eval_consts(ctx)
+        q, qp, bq = ctx.tb_q.q, ctx.tb_qp.q, ctx.tb_bsk.q
+        msk = ec.fbc_b_to_q_msk.c_q[-1:]
+        t = torch.tensor([[ctx.t]], dtype=torch.int64, device=dev)
+        batch = 64 if n <= 16384 else 4
+
+        def r(shape, qq, top=1):
+            return mont_residues(shape, qq, gen, top)
+
+        def near_2_31(shape):
+            v = torch.randint((1 << 31) - (1 << 24), 1 << 31, shape, generator=gen, device=dev)
+            v.view(-1)[::5] = (1 << 31) - 1
+            return v.to(torch.int32)
+
+        poly = r((batch, k, n), q)
+        y = r((2, batch, k + 1, n), qp)
+        tree = r((2, 4, 4, k, n), q)
+        sites = {  # name: (op, a, b, q)
+            "digits, batch": ("reduce", poly[..., None, :], 0, qp),
+            "digits, one ciphertext": ("reduce", poly[0, :, None, :], 0, qp),
+            "digits, a digit chunk": ("reduce", poly[..., 4:8, None, :], 0, qp),
+            "lift mod t": ("reduce", r((4, 128, 1, n), t), 0, qp),
+            "reduce near 2^31": ("reduce", near_2_31((2, k, 1, n)), 0, q),
+            "reduce m_sk alpha": ("reduce", r((2, batch, 1, n), msk), 0, q),
+            "add ciphertexts": ("add", r((2, batch, k, n), q), r((2, batch, k, n), q), q),
+            "add a plaintext": ("add", r((batch, k, n), q), r((k, n), q), q),
+            "add the finish's int64 fix": ("add", r((batch, k, n), q),
+                                           r((batch, 1, n), q[:1]).long() % (1 << 19), q),
+            "add a broadcast first operand": ("add", r((1, k, n), q), r((batch, k, n), q), q),
+            "add over q and P": ("add", y, r((2, batch, k + 1, n), qp), qp),
+            "add a tree's halves": ("add", tree.narrow(2, 0, 2), tree.narrow(2, 2, 2), q),
+            "add int64 a": ("add", r((2, k, n), q).long(), r((2, k, n), q), q),
+            "sub a view of y": ("sub", y[..., :-1, :], r((2, batch, k, n), q), q),
+            "sub one modulus": ("sub", r((2, batch, 1, n), msk), r((2, batch, 1, n), msk), msk),
+            "sub over Bsk": ("sub", r((2, batch, len(bq), n), bq), r((2, batch, len(bq), n), bq), bq),
+            "neg a ciphertext": ("neg", r((2, k, n), q), 0, q),
+            "neg the giantsteps' rows": ("neg", r((4, k, n), q)[1:], 0, q),
+            "add, unaligned": ("add", r((2, k, n + 1), q)[..., 1:], r((k, n), q), q),
+            "sub, unaligned": ("sub", r((2, k, n + 1), q)[..., 1:], r((2, k, n + 1), q)[..., 1:], q),
+            "neg, unaligned": ("neg", r((2, k, n + 1), q)[..., 1:], 0, q),
+            "digits, unaligned": ("reduce", r((2, k, n + 1), q)[..., None, 1:], 0, qp),
+        }
+        for site, (op, a, b, qq) in sites.items():
+            got = elem_call(op, a, b, qq)
+            want = elem_plain(op, a, b, qq)
+            ok = torch.equal(got, want)
+            log(f"kernels mod_elem {op} n={n} k={k} {site} {list(got.shape)} {got.dtype}: "
+                f"{'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"mod_elem differs from its plain version at {site}, n={n}")
+            del got, want
+        cols = (ec.q, ec.qi, ec.p_mod_q, ec.p_inv_mont)
+        c_pair = r((2, batch, k + 1, n), qp)
+        downs = {  # name: (c, the four columns)
+            "a batch's key-switch, k0/k1": (c_pair, cols),
+            "one ciphertext's key-switch": (r((2, k + 1, n), qp), cols),
+            "a BSGS sum": (r((k + 1, n), qp), cols),
+            "int64 c": (r((2, k + 1, n), qp).long(), cols),
+            "a limb view's rows": (torch.cat([c_pair[:, :, 4:8], c_pair[:, :, -1:]], 2),
+                                   tuple(x[4:8] for x in cols)),
+            "unaligned": (r((2, k + 1, n + 1), qp)[..., 1:], cols),
+        }
+        for site, (c, cc) in downs.items():
+            got = mod_kernels.mod_down(c, *cc, ec.p_half)
+            want = down_plain(c, *cc, ec.p_half)
+            ok = torch.equal(got, want)
+            log(f"kernels mod_down n={n} k={k} {site} {list(got.shape)} {got.dtype}: "
+                f"{'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"mod_down differs from its plain version at {site}, n={n}")
+            del got, want
+        del sites, downs, poly, y, tree, c_pair, ctx
+    counts = {k: mod_kernels.LAUNCHES[k] for k in ("mod_elem", "mod_down")}
+    log(f"kernels: launches {counts}, K5 by op {mod_kernels.OP_LAUNCHES}")
+    if min(counts.values()) == 0 or min(mod_kernels.OP_LAUNCHES.values()) == 0:
+        raise AssertionError(f"K5 (an op) or K6 did not launch in the kernel phase: {counts} "
+                             f"{mod_kernels.OP_LAUNCHES}")
 
 
 # the moduli columns (q, qinv_neg) first seen with each K3 / K4 layout, so
@@ -551,19 +717,27 @@ def mont_layout(x):
     return tuple(x.shape), tuple(x.stride()), str(x.dtype).split(".")[-1]
 
 
+# the moduli (and K6's constants) first seen with each K5 / K6 layout
+ELEM_MODULI = {}
+DOWN_CONSTS = {}
+
+
 class ShapeRecorder:
     """Records the (shape, moduli) of every K1 / K2 call (``calls["ntt_fwd"]``,
-    ``calls["ntt_inv"]``) and the operand layout of every K3 / K4 call
-    (``calls["mont"]``: (wrapper, dim, a, b, q, qinv_neg) layouts), without
-    touching the wrappers or their launch counts."""
+    ``calls["ntt_inv"]``), the operand layout of every K3 / K4 call
+    (``calls["mont"]``: (wrapper, dim, a, b, q, qinv_neg) layouts), of every
+    K5 call (``calls["elem"]``: (op, a, b, q)) and of every K6 call
+    (``calls["down"]``: (c, q) layouts), without touching the wrappers or
+    their launch counts."""
 
     def __init__(self):
         from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
 
         self.orig = [(ntt_kernels, name, getattr(ntt_kernels, name)) for name in ("ntt_fwd", "ntt_inv")]
         self.orig += [(mod_kernels, name, getattr(mod_kernels, name))
-                      for name in ("mont_mul", "mont_mul_lazy", "mont_mac")]
-        self.calls = {name: collections.Counter() for name in ("ntt_fwd", "ntt_inv", "mont")}
+                      for name in ("mont_mul", "mont_mul_lazy", "mont_mac", "mod_elem", "mod_down")]
+        self.calls = {name: collections.Counter()
+                      for name in ("ntt_fwd", "ntt_inv", "mont", "elem", "down")}
 
     def __enter__(self):
         for mod, name, fn in self.orig:
@@ -571,6 +745,18 @@ class ShapeRecorder:
                 def rec(x, tb, _fn=fn, _name=name):
                     self.calls[_name][(tuple(x.shape), tb.moduli)] += 1
                     return _fn(x, tb)
+            elif name == "mod_elem":
+                def rec(op, a, b, q, _fn=fn):
+                    key = (op, *map(mont_layout, (a, b, q)))
+                    ELEM_MODULI.setdefault(key, q)
+                    self.calls["elem"][key] += 1
+                    return _fn(op, a, b, q)
+            elif name == "mod_down":
+                def rec(c, *consts, _fn=fn):
+                    key = (mont_layout(c), mont_layout(consts[0]))
+                    DOWN_CONSTS.setdefault(key, consts)
+                    self.calls["down"][key] += 1
+                    return _fn(c, *consts)
             else:
                 def rec(a, b, q, qi, *dim, _fn=fn, _name=name):
                     key = (_name, dim[0] if dim else None, *map(mont_layout, (a, b, q, qi)))
@@ -1038,6 +1224,203 @@ def mont_rows(launches, calls):
     return rows
 
 
+# (kernel, what it stands for): K5 and K6 are not TPU kernels; the JAX
+# package gets them as XLA fusions of these functions
+ELEM_KERNELS = (
+    ("mod_elem", "hhe_tpu/ops/modular.py:108 (XLA fusions of add_mod / sub_mod :113 / neg_mod "
+                 ":117) and hhe_tpu/ops/rns.py:150 (reduce_u32)"),
+    ("mod_down", "hhe_tpu/ops/bfv_eval.py:224 (XLA fusion of mod_down)"),
+)
+
+
+def words_bytes(x) -> int:
+    """Bytes of a tensor's distinct elements (0 for a Python int)."""
+    if not hasattr(x, "stride"):
+        return 0
+    return x.element_size() * int(np.prod([n for n, st in zip(x.shape, x.stride()) if st]))
+
+
+def remade(lay, bound, gen):
+    """An operand of layout `lay` (a Python int as it is) holding random
+    values below `bound`, through the recorded strides (broadcast operands
+    stay unmaterialised)."""
+    import torch
+
+    if isinstance(lay, int):
+        return lay
+    shape, stride, dtype = lay
+    extent = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    base = torch.randint(0, bound, (extent,), generator=gen, device="cuda",
+                         dtype=getattr(torch, dtype))
+    return base.as_strided(shape, stride)
+
+
+def elem_entry(kind, key, calls, gen):
+    """Phase 7 for one K5 (`kind` "mod_elem") or K6 ("mod_down") layout a
+    path gave it: its operands remade (random values below the smallest
+    modulus, below 2^31 for a reduction's input, the recorded moduli and
+    constants), the kernel against the plain version (``torch.equal``),
+    timed as ``timings`` does (the ``_cold`` keys cycle through copies of
+    the streamed operands), the plain version's ms, the bound (each
+    operand's distinct words read once and the output written once at the
+    HBM rate) and, for a reduction, ``library_ms``: one ``torch.remainder``
+    call on the same operands (q in a's dtype), timed as ``ms`` is, where it
+    equals the kernel's output (three subtracts are x mod q for x < 4q);
+    else None, as for add, sub, neg and K6, which no one PyTorch call
+    computes.  Returns (entry, max abs error)."""
+    import torch
+
+    from hhe_tpu_torch.ops import mod_kernels
+
+    if kind == "mod_elem":
+        op, la, lb, _ = key
+        q = ELEM_MODULI[key]
+        qmin = int(q.min()) if isinstance(q, torch.Tensor) else int(q)
+        top = 1 << 31 if op == "reduce" else qmin
+
+        def make():
+            return remade(la, top, gen), remade(lb, qmin, gen)
+
+        def kern(x, y):
+            return mod_kernels.mod_elem(op, x, y, q)
+
+        def plain(x, y):
+            return elem_plain(op, x, y, q)
+
+        library = None
+        if op == "reduce":
+            def library(x, _):
+                return torch.remainder(x, q.to(x.dtype) if isinstance(q, torch.Tensor) else q)
+
+        desc = {"op": op, "a": [list(la[0]), la[2]], "b": lb if isinstance(lb, int) else [list(lb[0]), lb[2]]}
+        reads = lambda x, y: words_bytes(x) + words_bytes(y) + words_bytes(q)  # noqa: E731
+    else:
+        lc, _ = key
+        consts = DOWN_CONSTS[key]
+        qmin = int(consts[0].min())
+
+        def make():
+            return remade(lc, qmin, gen), 0
+
+        def kern(x, _):
+            return mod_kernels.mod_down(x, *consts)
+
+        def plain(x, _):
+            return down_plain(x, *consts)
+
+        library = None
+        desc = {"op": None, "a": [list(lc[0]), lc[2]], "b": None}
+        reads = lambda x, y: words_bytes(x) + sum(words_bytes(c) for c in consts[:4])  # noqa: E731
+    a, b = make()
+    got, want = kern(a, b), plain(a, b)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kind} differs from its plain version at {key}")
+    library_ms = None
+    if library is not None and torch.equal(library(a, b), got):
+        library_ms = cuda_ms(lambda: library(a, b), 20)
+    elif library is not None:
+        log(f"  torch.remainder differs from {kind} at {key}: no library time")
+    nbytes = reads(a, b) + got.numel() * got.element_size()
+    out = list(got.shape)
+    del got, want
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    copies = max(1, min(20, -(-2 * L2_BYTES // max(1, nbytes))))
+    pairs = [(a, b)] + [make() for _ in range(copies - 1)]
+    hot = lambda: kern(a, b)  # noqa: E731
+    cold = rotating([lambda x=x, y=y: kern(x, y) for x, y in pairs])
+    entry = {"kernel": kind, **desc, "out": list(out), "calls": calls, "bound_ms": b_ms,
+             "bound_by": "bytes", **timings(hot, cold, b_ms),
+             "plain_ms": cuda_ms(lambda: plain(a, b), 2), "library_ms": library_ms}
+    return entry, err
+
+
+def elem_rows(launches, calls):
+    """Phase 7 for K5 and K6: every layout the ECG path gave them and the
+    MONT_TOP most-called layouts of every other path in `calls`, checked
+    and timed by ``elem_entry`` (once a layout: a later path reuses the
+    entry); one row per kernel, its headline at the ECG path's layout with
+    the most bound time (calls x bound), ``paths`` summing calls x time
+    over the checked layouts of each path."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    checked, per = {}, {name: [] for name, _ in ELEM_KERNELS}
+    errs = dict.fromkeys(per, 0)
+    for path, path_calls in calls.items():
+        for kind, part in (("mod_elem", "elem"), ("mod_down", "down")):
+            counter = path_calls[part]
+            keys = counter.items() if path == "ecg" else counter.most_common(MONT_TOP)
+            for key, cnt in keys:
+                if (kind, key) not in checked:
+                    checked[kind, key] = elem_entry(kind, key, cnt, gen)
+                e, err = checked[kind, key]
+                e = dict(e, path=path, calls=cnt)
+                per[kind].append(e)
+                errs[kind] = max(errs[kind], err)
+                log(f"  {path} {kind}{' ' + e['op'] if e['op'] else ''} a={e['a']} b={e['b']} -> "
+                    f"{e['out']} x{cnt}: {e['ms']:.4f} ms a call ({e['ms_cold']:.4f} cold), "
+                    f"{e['device_ms']:.4f} on the device ({e['device_ms_cold']:.4f} cold), plain "
+                    f"{e['plain_ms']:.3f}, library {e['library_ms']}, bound {e['bound_ms']:.4f} (bytes), "
+                    f"{e['device_share_of_bound_cold']:.0%} on the device, cold")
+    rows = []
+    for name, replaces in ELEM_KERNELS:
+        shapes = per[name]
+        head = max((e for e in shapes if e["path"] == "ecg"), key=lambda e: e["calls"] * e["bound_ms"])
+        paths = {}
+        for path in calls:
+            mine = [e for e in shapes if e["path"] == path]
+            if mine:
+                t = {key: sum(e["calls"] * e[key] for e in mine)
+                     for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "bound_ms", "plain_ms")}
+                paths[path] = {**t, "layouts": len(mine), "calls": sum(e["calls"] for e in mine),
+                               "device_share_of_bound_cold": t["bound_ms"] / t["device_ms_cold"]}
+        main = paths["ecg"]
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": "hhe_tpu_torch/csrc/modarith.cu",
+            "replaces": replaces,
+            "launches": sum(per_path[name] for per_path in launches.values()),
+            "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
+            "max_abs_err": errs[name],
+            "tolerance": 0,  # exact residues: the kernel must equal its plain version
+            # library_ms: torch.remainder where the headline is a reduction; no one
+            # PyTorch call computes a modular add, sub or neg or K6's divide-and-round
+            **{key: head[key] for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by", "op", "a", "b", "out")},
+            "shape_path": "ecg",
+            "calls_at_shape": head["calls"],
+            "paths": paths,
+            "shapes_checked": len(shapes),
+            "shapes": [{key: e[key] for key in ("path", "op", "a", "b", "out", "calls", "ms",
+                                                "device_ms_cold", "plain_ms", "library_ms", "bound_ms")}
+                       for e in shapes],
+            "verdict": "equal",
+            "main_path_ms": main["ms"],
+            "main_path_device_ms": main["device_ms"],
+            "main_path_device_ms_cold": main["device_ms_cold"],
+            "main_path_bound_ms": main["bound_ms"],
+            "main_path_plain_ms": main["plain_ms"],
+            "main_path_device_share_of_bound_cold": main["device_share_of_bound_cold"],
+        }
+        if name == "mod_elem":  # K5's launches by op on each path
+            row["launches_by_op"] = {
+                path: {op: per_path.get(f"mod_elem_{op}", 0) for op in ("add", "sub", "neg", "reduce")}
+                for path, per_path in launches.items()}
+            log(f"mod_elem launches by op: {row['launches_by_op']}")
+        rows.append(row)
+        log(f"{name} at a={head['a']} b={head['b']} (ecg, x{head['calls']}): {head['ms']:.4f} ms a "
+            f"call ({head['device_ms']:.4f} on the device, {head['device_ms_cold']:.4f} cold), "
+            f"{head['plain_ms']:.3f} ms plain, library {head['library_ms']}, bound "
+            f"{head['bound_ms']:.4f} ms; launches "
+            f"{row['launches_by_path']}; "
+            + "; ".join(f"{p}: {v['calls']} calls in {v['layouts']} layouts, {v['ms']:.3f} ms "
+                        f"({v['device_ms_cold']:.3f} on the device, cold; plain {v['plain_ms']:.1f}) "
+                        f"against {v['bound_ms']:.3f}" for p, v in paths.items()))
+    return rows
+
+
 def phase_main_path():
     import torch
 
@@ -1226,8 +1609,8 @@ def phase_parallel(stack):
         for name in ("ntt_fwd", "ntt_inv"):
             if (m, name) not in ms:
                 raise AssertionError(f"{name} did not launch at M={m} on the parallel path")
-    if min(launches["mont_mul"], launches["mont_mac"]) == 0:
-        raise AssertionError(f"a Montgomery kernel did not launch on the parallel path: {launches}")
+    if min(launches[k] for k in ("mont_mul", "mont_mac", "mod_elem", "mod_down")) == 0:
+        raise AssertionError(f"a modular kernel did not launch on the parallel path: {launches}")
     log(f"parallel ({stats['backend']}, world {stats['world_size']}): ShardedNtt at "
         f"{[n for n, _ in PARALLEL_NTTS]} equal to poly_mul_host, sharded keygen equal to the "
         f"host's, csp_decompose(mesh=) and the host-expanded keystream equal to the unsplit "
@@ -1277,7 +1660,7 @@ def phase_limb(stack):
     must be split (limbs 0..12 in one block: a view that kept its limbs
     whole where the mesh divides them fails), every result must equal the
     unsplit one bit for bit, the predictions the plaintext model's and the
-    summed slots x @ w mod t, and K1-K4 must launch.  Then, outside the
+    summed slots x @ w mod t, and K1-K6 must launch.  Then, outside the
     counted run, keystream and FC times split and unsplit, the all-gathers
     (and bytes) of a keystream block, and the bytes of the key set each
     rank holds against the whole set's."""
@@ -1463,7 +1846,7 @@ def phase_parties():
     ``evaluateModelFromFile`` and, for L=300, ``evaluateModel`` with the
     checkpoint's ciphertexts in repeated ``HHEDecomp`` entries.  Gates: each
     analyst's results equal x @ w exactly and its predictions (x @ w > 0);
-    the three secret keys differ; K1-K4 launch."""
+    the three secret keys differ; K1-K6 launch."""
     import torch
 
     from hhe_tpu_torch.ops import bfv
@@ -1704,7 +2087,7 @@ def phase_ecg_full(stack, samples):
     [-508, 508] and a 13,245-row label file (temporary CSVs), `samples` of
     them (RunConfig's dry run; all with 0) in chunks of 512 samples, the
     product in slices of 64, one batched decrypt per chunk.  Its agreement
-    with the plaintext model must be 1.0 and K1-K4 must launch."""
+    with the plaintext model must be 1.0 and K1-K6 must launch."""
     import torch
 
     from hhe_tpu_torch.ops import transcipher
@@ -1920,7 +2303,7 @@ def phase_he_conv():
     (HCNN_EPOCHS epochs), device keygen, the conv and FC plaintexts, then
     HCNN_IMAGES encrypted images.  Gates: the encrypted logits equal the
     integer model's (the workload raises otherwise), noise budget left after
-    the FC, K1-K4 launched.  Records the Galois key count, the QAT,
+    the FC, K1-K6 launched.  Records the Galois key count, the QAT,
     keygen and plaintext seconds, per image the host encryption, device
     evaluation and decrypt/decode seconds, the seconds in each heconv
     function, the budget after each stage and the peak memory."""
@@ -2040,7 +2423,9 @@ def phase_rotation_32768():
     if not np.array_equal(ctx.decode(ctx.decrypt(sk, rot)),
                           np.roll(v.reshape(2, half), 1, axis=1).reshape(-1)):
         raise AssertionError("rotate_rows at N=32768 gives the wrong vector")
-    if min(launches[k] for k in PATH_KERNELS + TOP_KERNELS) == 0:
+    # a rotation's only Montgomery products are K4's contraction and K6's
+    # mod-down: it launches no K3
+    if min(launches[k] for k in PATH_KERNELS + TOP_KERNELS if k != "mont_mul") == 0:
         raise AssertionError(f"a kernel did not launch at N=32768: {launches}")
     stats = {"limbs": ctx.k, "rotate_s": rotate_s, "noise_budget_rotated": ctx.noise_budget(sk, rot)}
     log(f"N=32768: default_context ({ctx.k} limbs), rotate_rows(-1) right; launches {launches}; "
@@ -2133,44 +2518,71 @@ def helin_weight(stack, w):
     return helin.encrypt_weight(stack.ctx, stack.pk, np.asarray(w)[None, :])[0]
 
 
-def phase_profile(tc, enc_key, block_ms, tag):
-    """Device time by kernel over one keystream block of Transcipher `tc`
-    under torch.profiler.  The profiler slows the host, so the busy share is
-    also given against the unprofiled ``block_ms``."""
+# a device kernel's family in a profile, the first that matches its name: the
+# port's kernels by their __global__ function (K3 and K4's forms are mont_*),
+# then PyTorch's; "int64 elementwise" counts, besides, the elementwise
+# kernels whose name carries a `long` type
+KERNEL_FAMILIES = (("ntt", ("ntt_",)), ("mont", ("mont_",)), ("mod_elem", ("mod_elem_kernel",)),
+                   ("mod_down", ("mod_down_kernel",)), ("index", ("index", "gather", "scatter")),
+                   ("copy/cat", ("CatArray", "copy", "Copy")),
+                   ("elementwise", ("elementwise", "reduce_kernel")))
+PROFILE_TOP = 12
+
+
+def kernel_family(name: str) -> str:
+    for fam, tags in KERNEL_FAMILIES:
+        if any(tag in name for tag in tags):
+            return fam
+    return "other"
+
+
+def profiled(fn) -> dict:
+    """fn() once, then once more under torch.profiler, synchronised: its
+    device kernels, busy ms and profiled wall ms, kernels and device ms (and
+    share of busy) by ``kernel_family``, and the PROFILE_TOP kernels by
+    device time.  The profiler slows the host, so a busy share belongs
+    against an unprofiled wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hhe_tpu_torch.ops import pasta
-
-    mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
-    keys = tc._keys()
-    tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    ntt_ms = sum(e.self_device_time_total for e in evs if "ntt_" in e.key) / 1e3
-    mont_ms = sum(e.self_device_time_total for e in evs if "mont_kernel" in e.key) / 1e3
-    out = {
-        "profiled_block_wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "busy_share_of_profiled_wall": busy_ms / wall_ms,
-        "busy_share_of_unprofiled_block_ms": busy_ms / block_ms,
-        "device_kernels": sum(e.count for e in evs),
-        "ntt_ms": ntt_ms,
-        "ntt_share_of_busy": ntt_ms / busy_ms,
-        "mont_ms": mont_ms,
-        "mont_kernels": sum(e.count for e in evs if "mont_kernel" in e.key),
-        "mont_share_of_busy": mont_ms / busy_ms,
-    }
-    log(f"profile ({tag}): {out}")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
+    fams = {}
+    for e in evs:
+        fam = kernel_family(e.key)
+        for f in [fam] + (["int64 elementwise"] if fam == "elementwise" and "long" in e.key else []):
+            v = fams.setdefault(f, {"kernels": 0, "device_ms": 0.0})
+            v["kernels"] += e.count
+            v["device_ms"] += e.self_device_time_total / 1e3
+    for v in fams.values():
+        v["share_of_busy"] = v["device_ms"] / busy_ms
+    top = [{"device_ms": e.self_device_time_total / 1e3, "count": e.count, "name": e.key[:160]}
+           for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:PROFILE_TOP]]
+    return {"kernels": sum(e.count for e in evs), "busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+            "by_family": fams, "top": top}
+
+
+def phase_profile(tc, enc_key, block_ms, tag):
+    """One keystream block of Transcipher `tc`, ``profiled``; the busy share
+    also against the unprofiled ``block_ms``."""
+    from hhe_tpu_torch.ops import pasta
+
+    mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
+    keys = tc._keys()
+    out = profiled(lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys))
+    out["busy_share_of_profiled_wall"] = out["busy_ms"] / out["profiled_wall_ms"]
+    out["busy_share_of_unprofiled_block_ms"] = out["busy_ms"] / block_ms
+    log(f"profile ({tag}): {({k: v for k, v in out.items() if k != 'top'})}")
+    for e in out["top"]:
+        log(f"  {e['device_ms']:9.2f} ms {e['count']:6d}x  {e['name'][:100]}")
     return out
 
 
@@ -2427,7 +2839,7 @@ def main():
     free_device()
     large, launches["large_keystream"], calls["large_keystream"] = phase_large_keystream()
     free_device()
-    rows = kernel_rows(launches, calls) + mont_rows(launches, calls)
+    rows = kernel_rows(launches, calls) + mont_rows(launches, calls) + elem_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
                       "parallel": parallel, "limb": limb, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,

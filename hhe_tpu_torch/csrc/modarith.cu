@@ -1,6 +1,21 @@
-// Montgomery arithmetic on RNS residues for Hopper (sm_90a): the elementwise
-// Montgomery product (K3, `mont_mul` / `mont_mul_lazy`) and the Montgomery
-// multiply-accumulate over one axis (K4, `mont_mac`).
+// Modular arithmetic on RNS residues for Hopper (sm_90a): the elementwise
+// Montgomery product (K3, `mont_mul` / `mont_mul_lazy`), the Montgomery
+// multiply-accumulate over one axis (K4, `mont_mac`), the modular add /
+// sub / neg and the three-subtract reduction (K5, `mod_elem`), and the
+// divide-and-round by the special prime (K6, `mod_down`).
+//
+// K5 and K6 stand for the XLA fusions of hhe_tpu/ops/modular.py `add_mod` /
+// `sub_mod` / `neg_mod`, hhe_tpu/ops/rns.py `reduce_u32` and
+// hhe_tpu/ops/bfv_eval.py `mod_down`; their plain versions are
+// ops/modular.py `add_mod_plain` / `sub_mod_plain` / `neg_mod_plain`,
+// ops/rns.py `reduce_u32_plain` and ops/bfv_eval.py `mod_down_plain`.  Both
+// are bound by their bytes (a few integer ops a word): each operand word is
+// read once and each output word written once, 16 bytes at a time where
+// the rows allow.  K5 writes a broadcast output (a digit decomposition:
+// every limb reduced modulo every modulus, larger than its input) from one
+// read of the input row a thread, walking the moduli itself; K6 reads c's
+// special-prime row once for all k limbs of a word.  One launch replaces
+// the 5-11 int64 PyTorch passes of a plain call (29 for `mod_down`).
 //
 // They stand for the XLA fusions that the JAX package gets from
 // hhe_tpu/ops/modular.py `mont_mul` / `mont_mul_lazy` (one fused loop over a
@@ -153,18 +168,24 @@ __device__ __forceinline__ void get_words(const uint32_t* p, uint32_t (&v)[V]) {
   }
 }
 
-// V output words at element i (16 bytes at once for V = 4 into int32)
+// V output words at element i of `out` (int64 if out64, else int32; 16
+// bytes at once for V = 4 into int32)
 template <int V>
-__device__ __forceinline__ void store_words(const Args& g, long long i, const uint32_t (&v)[V]) {
-  if (g.out64) {
+__device__ __forceinline__ void store_words(void* out, int out64, long long i, const uint32_t (&v)[V]) {
+  if (out64) {
 #pragma unroll
-    for (int w = 0; w < V; ++w) static_cast<long long*>(g.out)[i + w] = static_cast<long long>(v[w]);
+    for (int w = 0; w < V; ++w) static_cast<long long*>(out)[i + w] = static_cast<long long>(v[w]);
   } else if (V == 4) {
-    *reinterpret_cast<int4*>(static_cast<int*>(g.out) + i) =
+    *reinterpret_cast<int4*>(static_cast<int*>(out) + i) =
         make_int4(v[0], v[V > 1 ? 1 : 0], v[V > 2 ? 2 : 0], v[V > 3 ? 3 : 0]);
   } else {
-    static_cast<int*>(g.out)[i] = static_cast<int>(v[0]);
+    static_cast<int*>(out)[i] = static_cast<int>(v[0]);
   }
+}
+
+template <int V>
+__device__ __forceinline__ void store_words(const Args& g, long long i, const uint32_t (&v)[V]) {
+  store_words<V>(g.out, g.out64, i, v);
 }
 
 // a b 2^-32 mod q in [0, 2q) when a b < q 2^32 (the plain version's _redc)
@@ -490,6 +511,129 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) mont_fan_reg_kernel(const Args
   }
 }
 
+// K5: one modular elementwise op on u32 words, the JAX package's
+// add_mod / sub_mod / neg_mod (hhe_tpu/ops/modular.py) and reduce_u32
+// (hhe_tpu/ops/rns.py), in the same u32 arithmetic
+enum ElemOp { ADD = 0, SUB = 1, NEG = 2, REDUCE = 3 };
+
+__device__ __forceinline__ uint32_t mod_elem(int op, uint32_t a, uint32_t b, uint32_t q) {
+  if (op == ADD) {
+    const uint32_t s = a + b;
+    return s >= q ? s - q : s;
+  }
+  if (op == SUB) return a >= b ? a - b : a + q - b;
+  if (op == NEG) return a == 0u ? a : q - a;
+  uint32_t r = a;  // REDUCE: exactly three conditional subtracts
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = r >= q ? r - q : r;
+  return r;
+}
+
+// K5.  Operands a, b, q (kernel operands 0-2; operand 3 unused).  A thread
+// takes W consecutive words of the innermost axis of one row of dimensions
+// 1 .. MAXD - 2 (blockIdx.y, rows) and walks dimension 0, the fan-out,
+// itself: where a and b are broadcast over it (a digit decomposition: one
+// limb reduced modulo every modulus), it reads them once and writes one
+// output row a modulus.  Any other layout has a fan-out of 1.
+template <int W>
+__global__ void __launch_bounds__(MAX_THREADS) mod_elem_kernel(const Args g, int op) {
+  const unsigned int inner = g.size[MAXD - 1];
+  const unsigned int F = g.size[0];
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * W;
+  if (j >= inner) return;
+  const Operand& A = g.op[0];
+  const Operand& Bo = g.op[1];
+  const Operand& Q = g.op[2];
+  for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
+    long long off[NOPS] = {0, 0, 0, 0};
+    long long ooff = j;
+    fan_row(g, row, off, ooff);
+#pragma unroll
+    for (int o = 0; o < 3; ++o) off[o] += j * g.op[o].stride[MAXD - 1];
+    uint32_t a[W], b[W];
+    load_words<W>(A, off[0], a);
+    load_words<W>(Bo, off[1], b);
+    for (unsigned int f = 0; f < F; ++f) {
+      if (f > 0 && A.stride[0] != 0) load_words<W>(A, off[0] + f * A.stride[0], a);
+      if (f > 0 && Bo.stride[0] != 0) load_words<W>(Bo, off[1] + f * Bo.stride[0], b);
+      uint32_t q[W], r[W];
+      load_words<W>(Q, off[2] + f * Q.stride[0], q);
+#pragma unroll
+      for (int w = 0; w < W; ++w) r[w] = mod_elem(op, a[w], b[w], q[w]);
+      store_words<W>(g, ooff + f * g.ostride[0], r);
+    }
+  }
+}
+
+// K6: divide-and-round by the special prime P, the JAX package's
+// bfv_eval.mod_down (hhe_tpu/ops/bfv_eval.py), fused.  For limb i < k and
+// word n of c [..., k + 1, N] (row k: the residues mod P):
+//   a1 = reduce(xp, q_i), xp = c[k, n];
+//   fix = xp > p_half ? sub_mod(a1, P mod q_i, q_i) : a1;
+//   out[i, n] = mont_mul(sub_mod(c[i, n], fix, q_i), Mont(P^-1 mod q_i)).
+constexpr int MAXL = MAXD - 2;  // c's leading dimensions after the wrapper's collapse
+constexpr int NCOLS = 4;        // q, qinv, P mod q, Mont(P^-1 mod q): [k] columns
+constexpr int DOWN_HEAD = 9;    // out, out64, vec, threads, zsplit, k, inner, limb stride, p_half
+constexpr int DOWN_DESC_WORDS = DOWN_HEAD + 3 + 2 * MAXL + 3 * NCOLS;
+
+struct DownArgs {
+  Operand c;                   // stride[MAXD - 1]: along the innermost axis
+  Operand col[NCOLS];          // stride[0]: along the limbs
+  void* out;                   // [..., k, N], contiguous
+  long long lead_size[MAXL];
+  long long lead_stride[MAXL];
+  long long limb_stride;       // c's, between limbs
+  long long rows;              // product of lead_size
+  unsigned int k;
+  unsigned int inner;
+  unsigned int p_half;
+  int out64;
+};
+
+// A thread takes W consecutive words of one leading row (blockIdx.y, rows)
+// and walks the limbs blockIdx.z, blockIdx.z + gridDim.z, ...: it reads the
+// P row's words once and each limb's once, and writes each output word
+// once.  The wrapper splits the limbs over gridDim.z where the rows and
+// words alone would give too few blocks (one ciphertext's key-switch).
+template <int W>
+__global__ void __launch_bounds__(MAX_THREADS) mod_down_kernel(const DownArgs g) {
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * W;
+  if (j >= g.inner) return;
+  const long long istride = g.c.stride[MAXD - 1];
+  for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
+    long long coff = j * istride;
+    unsigned int r = static_cast<unsigned int>(row);
+#pragma unroll
+    for (int d = MAXL - 1; d >= 0; --d) {
+      const unsigned int size = static_cast<unsigned int>(g.lead_size[d]);
+      if (size > 1) {
+        coff += (r % size) * g.lead_stride[d];
+        r /= size;
+      }
+    }
+    uint32_t xp[W];
+    load_words<W>(g.c, coff + g.k * g.limb_stride, xp);
+    const long long obase = row * g.k * g.inner + j;
+#pragma unroll 2
+    for (unsigned int i = blockIdx.z; i < g.k; i += gridDim.z) {
+      const uint32_t q = load(g.col[0], i * g.col[0].stride[0]);
+      const uint32_t qinv = load(g.col[1], i * g.col[1].stride[0]);
+      const uint32_t pm = load(g.col[2], i * g.col[2].stride[0]);
+      const uint32_t pinv = load(g.col[3], i * g.col[3].stride[0]);
+      uint32_t c[W], res[W];
+      load_words<W>(g.c, coff + i * g.limb_stride, c);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const uint32_t a1 = mod_elem(REDUCE, xp[w], 0u, q);
+        const uint32_t fix = xp[w] > g.p_half ? mod_elem(SUB, a1, pm, q) : a1;
+        const uint64_t t = redc(mod_elem(SUB, c[w], fix, q), pinv, q, qinv);
+        res[w] = static_cast<uint32_t>(t >= q ? t - q : t);
+      }
+      store_words<W>(g.out, g.out64, obase + static_cast<long long>(i) * g.inner, res);
+    }
+  }
+}
+
 // shared memory a fan-out block needs
 long long fan_smem(int form, long long terms, long long fan, int threads, int v) {
   if (form == FANOUT_REGS) return 0;
@@ -505,6 +649,50 @@ cudaError_t launch(K kernel, dim3 grid, int threads, long long smem, cudaStream_
   }
   kernel<<<grid, threads, static_cast<size_t>(smem), st>>>(g);
   return cudaGetLastError();
+}
+
+// Runs launch_fn() with `device` current and leaves the caller's current
+// device as it was; the launch's error code, else the first CUDA error
+template <typename F>
+int on_device(int device, F launch_fn) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = static_cast<int>(launch_fn());
+  if (prev != device) {
+    err = cudaSetDevice(prev);
+    if (rc == 0) rc = static_cast<int>(err);
+  }
+  return rc;
+}
+
+// hhe_mont's and hhe_mod_elem's descriptor into g, but for g.rows; false
+// if a size is out of range
+bool read_desc(const long long* desc, Args& g) {
+  g.out = reinterpret_cast<void*>(desc[0]);
+  g.out64 = static_cast<int>(desc[1]);
+  g.lazy = static_cast<int>(desc[2]);
+  g.terms = desc[3];
+  const long long* p = desc + HEAD;
+  for (int o = 0; o < NOPS; ++o, p += 4 + MAXD) {
+    g.op[o].ptr = reinterpret_cast<const void*>(p[0]);
+    g.op[o].is64 = static_cast<int>(p[1]);
+    g.op[o].scalar = static_cast<unsigned int>(p[2]);
+    g.op[o].rstride = p[3];
+    for (int d = 0; d < MAXD; ++d) g.op[o].stride[d] = p[4 + d];
+  }
+  for (int d = 0; d < MAXD; ++d) {
+    if (p[d] < 1 || p[d] >= (1LL << 31)) return false;
+    g.size[d] = static_cast<unsigned int>(p[d]);
+    g.ostride[d] = p[MAXD + d];
+  }
+  return true;
+}
+
+dim3 row_grid(long long tiles, long long rows, long long z = 1) {
+  return dim3(static_cast<unsigned int>(tiles), static_cast<unsigned int>(rows < 65535 ? rows : 65535),
+              static_cast<unsigned int>(z));
 }
 
 }  // namespace
@@ -523,28 +711,13 @@ extern "C" {
 // Launches on `device` and leaves the caller's current device as it was.
 int hhe_mont(const long long* desc, int device, void* stream) {
   Args g;
-  g.out = reinterpret_cast<void*>(desc[0]);
-  g.out64 = static_cast<int>(desc[1]);
-  g.lazy = static_cast<int>(desc[2]);
-  g.terms = desc[3];
+  if (!read_desc(desc, g)) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = desc[4] != 0;
   const int form = static_cast<int>(desc[5]);
   const int threads = static_cast<int>(desc[6]);
-  const long long* p = desc + HEAD;
-  for (int o = 0; o < NOPS; ++o, p += 4 + MAXD) {
-    g.op[o].ptr = reinterpret_cast<const void*>(p[0]);
-    g.op[o].is64 = static_cast<int>(p[1]);
-    g.op[o].scalar = static_cast<unsigned int>(p[2]);
-    g.op[o].rstride = p[3];
-    for (int d = 0; d < MAXD; ++d) g.op[o].stride[d] = p[4 + d];
-  }
   g.rows = 1;
-  for (int d = 0; d < MAXD; ++d) {
-    if (p[d] < 1 || p[d] >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-    g.size[d] = static_cast<unsigned int>(p[d]);
-    g.ostride[d] = p[MAXD + d];
-    if (d < MAXD - 1 && (form == GENERAL || d > 0)) g.rows *= p[d];
-  }
+  for (int d = 0; d < MAXD - 1; ++d)
+    if (form == GENERAL || d > 0) g.rows *= g.size[d];
   const bool fan = form != GENERAL;
   if (g.rows >= (1LL << 31) || g.terms < 1 || (g.lazy && g.terms != 1) ||
       (vec && g.size[MAXD - 1] % 4 != 0) || form < GENERAL || form > FANOUT_REGS ||
@@ -559,38 +732,113 @@ int hhe_mont(const long long* desc, int device, void* stream) {
   const long long smem = fan ? fan_smem(form, g.terms, g.size[0], threads, v) : 0;
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
 
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long per_block = static_cast<long long>(threads) * (fan ? v : (vec ? 4 * 2 : 4));
   const long long tiles = (g.size[MAXD - 1] + per_block - 1) / per_block;
   const long long blocks = g.rows * tiles;
   const dim3 grid = fan ? dim3(static_cast<unsigned int>(blocks < (1LL << 30) ? blocks : (1LL << 30)))
-                        : dim3(static_cast<unsigned int>(tiles),
-                               static_cast<unsigned int>(g.rows < 65535 ? g.rows : 65535));
+                        : row_grid(tiles, g.rows);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (form == FANOUT_REGS)
-    err = vec ? launch(mont_fan_reg_kernel<4>, grid, threads, 0, st, g)
-              : launch(mont_fan_reg_kernel<1>, grid, threads, 0, st, g);
-  else if (form == FANOUT)
-    err = vec ? launch(mont_fan_kernel<4, false>, grid, threads, smem, st, g)
-              : launch(mont_fan_kernel<1, false>, grid, threads, smem, st, g);
-  else if (form == TABLE)
-    err = vec ? launch(mont_fan_kernel<4, true>, grid, threads, smem, st, g)
-              : launch(mont_fan_kernel<1, true>, grid, threads, smem, st, g);
-  else
-    err = vec ? launch(mont_kernel<4, 2>, grid, threads, 0, st, g)
-              : launch(mont_kernel<1, 4>, grid, threads, 0, st, g);
-  int rc = static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(prev);
-    if (rc == 0) rc = static_cast<int>(err);
+  return on_device(device, [&]() {
+    if (form == FANOUT_REGS)
+      return vec ? launch(mont_fan_reg_kernel<4>, grid, threads, 0, st, g)
+                 : launch(mont_fan_reg_kernel<1>, grid, threads, 0, st, g);
+    if (form == FANOUT)
+      return vec ? launch(mont_fan_kernel<4, false>, grid, threads, smem, st, g)
+                 : launch(mont_fan_kernel<1, false>, grid, threads, smem, st, g);
+    if (form == TABLE)
+      return vec ? launch(mont_fan_kernel<4, true>, grid, threads, smem, st, g)
+                 : launch(mont_fan_kernel<1, true>, grid, threads, smem, st, g);
+    return vec ? launch(mont_kernel<4, 2>, grid, threads, 0, st, g)
+               : launch(mont_kernel<1, 4>, grid, threads, 0, st, g);
+  });
+}
+
+// K5: hhe_mont's descriptor with terms 1, form GENERAL and lazy 0; kernel
+// operands a, b, q (operand 3 unused); dimension 0 the fan-out (any sizes,
+// the output's strides over them); op one of ElemOp.
+int hhe_mod_elem(const long long* desc, int op, int device, void* stream) {
+  Args g;
+  if (!read_desc(desc, g)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = desc[4] != 0;
+  const int threads = static_cast<int>(desc[6]);
+  g.rows = 1;
+  for (int d = 1; d < MAXD - 1; ++d) g.rows *= g.size[d];
+  if (g.rows >= (1LL << 31) || g.terms != 1 || g.lazy || desc[5] != GENERAL || op < ADD ||
+      op > REDUCE || (vec && g.size[MAXD - 1] % 4 != 0) || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_block = static_cast<long long>(threads) * (vec ? 4 : 1);
+  const dim3 grid = row_grid((g.size[MAXD - 1] + per_block - 1) / per_block, g.rows);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() {
+    if (vec)
+      mod_elem_kernel<4><<<grid, threads, 0, st>>>(g, op);
+    else
+      mod_elem_kernel<1><<<grid, threads, 0, st>>>(g, op);
+    return cudaGetLastError();
+  });
+}
+
+// K6.  desc (DOWN_DESC_WORDS int64): out, out64, vec, threads, zsplit, k,
+// inner, c's limb stride, p_half; c: ptr, is64, innermost stride; c's
+// leading sizes[MAXL] and strides[MAXL] (the output's rows, in order); then
+// for q, qinv, P mod q and Mont(P^-1 mod q): ptr, is64, stride along the
+// limbs.  vec: c runs
+// contiguously along the innermost axis from a 16-byte aligned word, its
+// limb and leading strides are multiples of 4 and inner % 4 == 0.
+int hhe_mod_down(const long long* desc, int device, void* stream) {
+  DownArgs g;
+  g.out = reinterpret_cast<void*>(desc[0]);
+  g.out64 = static_cast<int>(desc[1]);
+  const bool vec = desc[2] != 0;
+  const int threads = static_cast<int>(desc[3]);
+  const long long zsplit = desc[4];
+  const long long k = desc[5], inner = desc[6];
+  g.limb_stride = desc[7];
+  g.c = Operand{};
+  g.c.ptr = reinterpret_cast<const void*>(desc[DOWN_HEAD]);
+  g.c.is64 = static_cast<int>(desc[DOWN_HEAD + 1]);
+  g.c.stride[MAXD - 1] = desc[DOWN_HEAD + 2];
+  const long long* p = desc + DOWN_HEAD + 3;
+  g.rows = 1;
+  for (int d = 0; d < MAXL; ++d) {
+    g.lead_size[d] = p[d];
+    g.lead_stride[d] = p[MAXL + d];
+    if (p[d] < 1 || p[d] >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    g.rows *= p[d];
   }
-  return rc;
+  p += 2 * MAXL;
+  bool cols = true;
+  for (int o = 0; o < NCOLS; ++o, p += 3) {
+    g.col[o] = Operand{};
+    g.col[o].ptr = reinterpret_cast<const void*>(p[0]);
+    g.col[o].is64 = static_cast<int>(p[1]);
+    g.col[o].stride[0] = p[2];
+    cols = cols && p[0] != 0;
+  }
+  if (k < 1 || k >= (1LL << 31) || inner < 1 || inner >= (1LL << 31) || g.rows >= (1LL << 31) ||
+      desc[8] < 0 || desc[8] >= (1LL << 32) || g.c.ptr == nullptr || !cols || zsplit < 1 || zsplit > k ||
+      zsplit > 65535 || (vec && (inner % 4 != 0 || g.c.stride[MAXD - 1] != 1)) || threads < 32 ||
+      threads > MAX_THREADS || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.k = static_cast<unsigned int>(k);
+  g.inner = static_cast<unsigned int>(inner);
+  g.p_half = static_cast<unsigned int>(desc[8]);
+  const long long per_block = static_cast<long long>(threads) * (vec ? 4 : 1);
+  const dim3 grid = row_grid((inner + per_block - 1) / per_block, g.rows, zsplit);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() {
+    if (vec)
+      mod_down_kernel<4><<<grid, threads, 0, st>>>(g);
+    else
+      mod_down_kernel<1><<<grid, threads, 0, st>>>(g);
+    return cudaGetLastError();
+  });
 }
 
 int hhe_mont_desc_words() { return DESC_WORDS; }
+
+int hhe_mod_down_desc_words() { return DOWN_DESC_WORDS; }
 
 const char* hhe_mont_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

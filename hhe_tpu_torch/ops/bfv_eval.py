@@ -31,8 +31,9 @@ import torch
 
 from . import ntt, rns
 from .bfv import Ciphertext, Context, KSwitchKey
-from .modular import add_mod, mont_mac, mont_mul, neg_mod, sub_mod, to_mont_host
-from .rns import reduce_u32
+from .modular import (add_mod, mont_mac, mont_mul, mont_mul_plain, neg_mod, sub_mod,
+                      sub_mod_plain, to_mont_host)
+from .rns import reduce_u32, reduce_u32_plain
 
 I64 = torch.int64
 
@@ -187,11 +188,9 @@ def ntt_galois_src(ctx: Context, g: int) -> np.ndarray:
 
 def _digits(ctx: Context, poly_q: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     """Limbs start..stop-1 of the whole poly_q, each reduced mod every
-    modulus of ctx's q ∪ P: [..., k, N] -> [..., stop-start, k'+1, N]."""
-    pq = ctx.tb_qp.q
-    return torch.stack(
-        [reduce_u32(poly_q[..., j : j + 1, :], pq) for j in range(start, stop)], dim=-3
-    )
+    modulus of ctx's q ∪ P: [..., k, N] -> [..., stop-start, k'+1, N], one
+    ``reduce_u32`` over the broadcast (one K5 launch on the card)."""
+    return reduce_u32(poly_q[..., start:stop, None, :], ctx.tb_qp.q)
 
 
 def hoist_digits(ctx: Context, poly_q: torch.Tensor) -> torch.Tensor:
@@ -215,12 +214,26 @@ def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey,
 
 def mod_down(ctx: Context, c: torch.Tensor) -> torch.Tensor:
     """Divide-and-round by the special prime: [..., k+1, N] coeff over q ∪ P
-    -> [..., k, N] over q."""
+    -> [..., k, N] over q (the rows of ctx's q; P's the last row of c).  A
+    CUDA c goes to the K6 kernel (``mod_kernels.mod_down``, one launch), a
+    CPU c to ``mod_down_plain``."""
     ec = eval_consts(ctx)
+    consts = (ec.q, ec.qi, ec.p_mod_q, ec.p_inv_mont, ec.p_half)
+    if c.is_cuda:
+        from . import mod_kernels
+
+        return mod_kernels.mod_down(c, *consts)
+    return mod_down_plain(c, *consts)
+
+
+def mod_down_plain(c, q, qinv_neg, p_mod_q, p_inv_mont, p_half) -> torch.Tensor:
+    """Plain version of ``mod_down`` (int64 PyTorch), on the K6 wrapper's
+    arguments: [k, 1] columns q, qinv_neg, P mod q, Mont(P^-1 mod q) and
+    p_half = P // 2."""
     xp = c[..., -1:, :]
-    a1 = reduce_u32(xp, ec.q)
-    fix = torch.where(xp > ec.p_half, sub_mod(a1, ec.p_mod_q, ec.q), a1)
-    return mont_mul(sub_mod(c[..., :-1, :], fix, ec.q), ec.p_inv_mont, ec.q, ec.qi)
+    a1 = reduce_u32_plain(xp, q)
+    fix = torch.where(xp > p_half, sub_mod_plain(a1, p_mod_q, q), a1)
+    return mont_mul_plain(sub_mod_plain(c[..., :-1, :], fix, q), p_inv_mont, q, qinv_neg)
 
 
 def keyswitch(

@@ -1,28 +1,38 @@
-"""Hand-written CUDA kernels for the Montgomery product (K3) and the
-Montgomery multiply-accumulate (K4), ``csrc/modarith.cu``, and their wrappers.
+"""Hand-written CUDA kernels for modular arithmetic on RNS residues,
+``csrc/modarith.cu``, and their wrappers: the Montgomery product (K3), the
+Montgomery multiply-accumulate (K4), the modular add / sub / neg and the
+three-subtract reduction (K5 ``mod_elem``) and the divide-and-round by the
+special prime (K6 ``mod_down``).
 
-The JAX package has no Pallas kernel for either: XLA fuses each chain of
-``hhe_tpu.ops.modular.mont_mul`` (and of ``tree_add_mod`` over its products)
-into one loop over the data.  Here each is one launch that keeps the 64-bit
-products in registers, where the plain PyTorch versions
-(``modular.mont_mul_plain``, ``mont_mul_lazy_plain``, ``mont_mac_plain``)
-take about fifteen int64 passes.  ``modular.mont_mul`` / ``mont_mul_lazy`` /
-``mont_mac`` send a CUDA tensor here and a CPU tensor to the plain versions.
-The source is built like ``csrc/ntt.cu`` (``ntt_kernels.build``): with
-``nvcc`` at first use into ``build/hhe_tpu_torch/``, keyed by a hash of the
-source, and loaded with ctypes.
+The JAX package has no Pallas kernel for any of them: XLA fuses each chain
+of ``hhe_tpu.ops.modular.mont_mul`` (and of ``tree_add_mod`` over its
+products), of ``add_mod`` / ``sub_mod`` / ``neg_mod``, of
+``hhe_tpu.ops.rns.reduce_u32`` and of ``hhe_tpu.ops.bfv_eval.mod_down``
+into one loop over the data.  Here each is one launch that keeps its
+intermediates in registers, where the plain PyTorch versions
+(``modular.*_plain``, ``rns.reduce_u32_plain``,
+``bfv_eval.mod_down_plain``) take 5-29 int64 passes.  ``modular.mont_mul``
+/ ``mont_mul_lazy`` / ``mont_mac`` / ``add_mod`` / ``sub_mod`` /
+``neg_mod``, ``rns.reduce_u32`` and ``bfv_eval.mod_down`` send a CUDA tensor
+here and a CPU tensor to the plain versions.  The source is built like
+``csrc/ntt.cu`` (``ntt_kernels.build``): with ``nvcc`` at first use into
+``build/hhe_tpu_torch/``, keyed by a hash of the source, and loaded with
+ctypes.
 
-The wrappers take what the plain versions take: a tensor ``a`` (int32 or
-int64; the output has its dtype), and ``b`` / ``q`` / ``qinv_neg`` as int32
-or int64 tensors that broadcast against it, or as Python ints below 2^32.
-Values are read as u32 bit patterns (an int64 by its low 32 bits).  A
-broadcast operand reaches the kernel as strides of 0, never materialised;
-the output's shape is collapsed to at most ``MAX_DIMS`` dimensions.  A
-tensor on the CPU, another dtype, shapes that do not broadcast, moduli that
-vary along the reduction axis, or a shape that does not collapse to
-``MAX_DIMS`` dimensions raise; nothing falls back to the plain version.
-``LAUNCHES`` counts the launches of each kernel, ``FORM_LAUNCHES`` K4's by
-form.
+The K3-K5 wrappers take what the plain versions take: a tensor ``a`` (int32
+or int64; the output has its dtype), and the other operands as int32 or
+int64 tensors that broadcast against it, or as Python ints below 2^32.
+Values are read as u32 bit patterns (an int64 by its low 32 bits), which the
+plain versions' int64 arithmetic equals for operands in [0, 2^31) (K5's sub
+and neg: below their row's q as well).  A broadcast operand reaches the
+kernel as strides of 0, never materialised; the output's shape is collapsed
+to at most ``MAX_DIMS`` dimensions.  A tensor on the CPU, another dtype,
+shapes that do not broadcast, moduli that vary along the reduction axis, or
+a shape that does not collapse to ``MAX_DIMS`` dimensions raise; nothing
+falls back to the plain version.  K6 takes c [..., k + 1, N] (int32 or
+int64, leading dimensions collapsing to ``MAX_LEAD``) and four [k, 1]
+constant columns.  ``LAUNCHES`` counts the launches of each kernel,
+``FORM_LAUNCHES`` K4's by form, ``OP_LAUNCHES`` K5's by op.
 
 K4 takes one of four forms by layout (``plan``): where one multiplicand is
 broadcast over an output axis along which the other varies (a key-switch's
@@ -32,7 +42,9 @@ axis and streams the other ("fanout", staged in shared memory;
 "fanout_regs", up to four outputs summed in registers where the staged
 tile would be too large; "table" where the streamed one is a constant per
 word row, as a base conversion's, held as Shoup pairs); other layouts take
-the one-pass loop ("general").
+the one-pass loop ("general").  K5 (``elem_plan``) walks, in each thread,
+the largest output axis that a and b are both broadcast over (a digit
+decomposition's moduli), so its input is read once for all of its outputs.
 """
 
 from __future__ import annotations
@@ -65,9 +77,21 @@ MAX_FAN_TERMS = 1 << 20  # the fan-out forms' exact u64 sums (csrc/modarith.cu h
 TABLE_MIN_BLOCKS = 64
 FAN_REG = 4  # the most outputs "fanout_regs" keeps sums of (csrc/modarith.cu FAN_REG)
 
-# K3 (eager and lazy) and K4; K4's launches by form
-LAUNCHES = {"mont_mul": 0, "mont_mac": 0}
+# K5's ops (csrc/modarith.cu ElemOp) and its operands' names in messages
+ELEM_OPS = ("add", "sub", "neg", "reduce")
+ELEM_NAMES = ("a", "b", "q", "unused")
+# K6: c's leading dimensions after the collapse (csrc/modarith.cu MAXL), its
+# constant columns, and its descriptor (HEAD 9, c 3, the leading dimensions'
+# sizes and strides, 3 words a column)
+MAX_LEAD = MAX_DIMS - 2
+DOWN_NAMES = ("q", "qinv_neg", "p_mod_q", "p_inv_mont")
+_DOWN_C = 9  # the descriptor's first word of c
+DOWN_DESC_WORDS = _DOWN_C + 3 + 2 * MAX_LEAD + 3 * len(DOWN_NAMES)
+
+# K3 (eager and lazy), K4, K5 and K6; K4's launches by form, K5's by op
+LAUNCHES = {"mont_mul": 0, "mont_mac": 0, "mod_elem": 0, "mod_down": 0}
 FORM_LAUNCHES = dict.fromkeys(FORMS, 0)
+OP_LAUNCHES = dict.fromkeys(ELEM_OPS, 0)
 
 SOURCE = ntt_kernels._PKG / "csrc" / "modarith.cu"
 BUILD_LOG = {}  # as ntt_kernels.BUILD_LOG, for this source
@@ -89,11 +113,17 @@ def _library():
             lib.hhe_mont.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                                      ctypes.c_void_p]
             lib.hhe_mont.restype = ctypes.c_int
+            lib.hhe_mod_elem.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+            lib.hhe_mod_elem.restype = ctypes.c_int
+            lib.hhe_mod_down.argtypes = lib.hhe_mont.argtypes
+            lib.hhe_mod_down.restype = ctypes.c_int
             lib.hhe_mont_desc_words.restype = ctypes.c_int
+            lib.hhe_mod_down_desc_words.restype = ctypes.c_int
             lib.hhe_mont_error_string.argtypes = [ctypes.c_int]
             lib.hhe_mont_error_string.restype = ctypes.c_char_p
-            if lib.hhe_mont_desc_words() != DESC_WORDS:
-                raise RuntimeError("csrc/modarith.cu and mod_kernels disagree on the descriptor")
+            if (lib.hhe_mont_desc_words(), lib.hhe_mod_down_desc_words()) != (DESC_WORDS, DOWN_DESC_WORDS):
+                raise RuntimeError("csrc/modarith.cu and mod_kernels disagree on the descriptors")
             _lib = lib
         return _lib
 
@@ -187,54 +217,58 @@ def _threads(form: str, sizes, terms: int) -> int:
     return choices[-1]
 
 
-def plan(a, b, q, qinv_neg, dim: Optional[int] = None, fan_out: bool = True) -> Plan:
-    """Check the operands and lay them out for the kernel; reduce over
-    ``dim`` of their broadcast shape (K4) or over nothing (K3).  K4 takes a
-    fan-out form where the layout has one (``_fan_out``) unless ``fan_out``
-    is False.  Raises on anything the kernel does not take except the
-    device (``_run`` checks that on every call)."""
-    ops = (a, b, q, qinv_neg)
-    if not isinstance(a, torch.Tensor):
-        raise TypeError(f"a must be a tensor, got {type(a).__name__}")
-    for name, x in zip(NAMES, ops):
+def _check(ops, names=NAMES, what="Montgomery kernels"):
+    """Raise unless ops[0] is a tensor and every operand an int32 / int64
+    tensor or a Python int below 2^32."""
+    if not isinstance(ops[0], torch.Tensor):
+        raise TypeError(f"{names[0]} must be a tensor, got {type(ops[0]).__name__}")
+    for name, x in zip(names, ops):
         if isinstance(x, torch.Tensor):
             if x.dtype not in (torch.int32, torch.int64):
-                raise TypeError(f"{name}: Montgomery kernels take int32 or int64, got {x.dtype}")
+                raise TypeError(f"{name}: {what} take int32 or int64, got {x.dtype}")
         elif isinstance(x, (int, np.integer)) and not isinstance(x, bool):
             if not 0 <= int(x) < 1 << 32:
                 raise ValueError(f"{name} = {int(x)} is not a u32 value")
         else:
             raise TypeError(f"{name} must be a tensor or an int, got {type(x).__name__}")
+
+
+def _collapse(dims):
+    """[(size, [each operand's stride])], outermost first, with size-1
+    dimensions dropped and each dimension merged into the next inner one
+    where every operand's strides let it."""
+    out = []
+    for size, st in dims:
+        if size == 1:
+            continue
+        if out and all(ps == s * size for ps, s in zip(out[-1][1], st)):
+            out[-1] = (out[-1][0] * size, st)
+        else:
+            out.append((size, st))
+    return out
+
+
+def _layout(ops, dim: Optional[int]):
+    """(broadcast shape, each operand's strides over it, the output's shape,
+    collapsed dimensions [(size, strides of each operand, output stride)],
+    the reduced axis) of `ops` with axis `dim` (or None) reduced: every
+    dimension merged into the next inner one where each operand's strides
+    let it (the output is contiguous), size-1 dimensions dropped."""
     tensors = [x for x in ops if isinstance(x, torch.Tensor)]
     try:
         full = tuple(torch.broadcast_shapes(*(x.shape for x in tensors)))
     except RuntimeError as e:
         raise ValueError(f"operands do not broadcast: {[tuple(x.shape) for x in tensors]}") from e
     nd = len(full)
-    strides = [x.expand(full).stride() if isinstance(x, torch.Tensor) else (0,) * nd
-               for x in ops]
-    red, terms = None, 1
+    red = None
     if dim is not None:
         if not -nd <= dim < nd:
             raise ValueError(f"reduction axis {dim} out of range for {nd} dimensions")
         red = dim % nd
-        terms = full[red]
-        if terms < 1:
-            raise ValueError("empty reduction axis")
-        if terms > 1 and (strides[2][red] or strides[3][red]):
-            raise ValueError("the moduli must not vary along the reduction axis")
+    strides = [x.expand(full).stride() if isinstance(x, torch.Tensor) else (0,) * nd
+               for x in ops]
     shape = tuple(s for i, s in enumerate(full) if i != red)
-    # merge each dimension into the next inner one where every operand's
-    # strides let it (the output is contiguous); size-1 dimensions go
-    dims = []
-    for i, size in enumerate(full):
-        if i == red or size == 1:
-            continue
-        st = [s[i] for s in strides]
-        if dims and all(ps == s * size for ps, s in zip(dims[-1][1], st)):
-            dims[-1] = (dims[-1][0] * size, st)
-        else:
-            dims.append((size, st))
+    dims = _collapse([(size, [s[i] for s in strides]) for i, size in enumerate(full) if i != red])
     if len(dims) > MAX_DIMS:
         raise ValueError(f"{len(dims)} dimensions do not collapse to {MAX_DIMS}: {full}")
     ostrides, outer = [], 1  # the output's, contiguous over the collapsed sizes
@@ -242,27 +276,83 @@ def plan(a, b, q, qinv_neg, dim: Optional[int] = None, fan_out: bool = True) -> 
         ostrides.append(outer)
         outer *= size
     dims = [(size, st, os) for (size, st), os in zip(dims, reversed(ostrides))]
-    order, form = (0, 1, 2, 3), "general"
-    fan = _fan_out([(n, st) for n, st, _ in dims], ops, terms) if red is not None and fan_out else None
-    one = (1, [0] * 4, 0)
-    if fan is None:
-        dims = [one] * (MAX_DIMS - len(dims)) + dims
-    else:
-        i, s, form = fan
-        order = (s, 1 - s, 2, 3)
-        rest = [d for n, d in enumerate(dims[:-1]) if n != i]
-        rest.sort(key=lambda d: d[1][1 - s] == 0)  # rows W is broadcast over run fastest
-        dims = [dims[i]] + [one] * (MAX_DIMS - len(dims)) + rest + [dims[-1]]
-    sizes = tuple(n for n, _, _ in dims)
-    operands = tuple(
+    return full, strides, shape, dims, red
+
+
+_ONE = (1, [0] * 4, 0)  # a dimension of size 1
+
+
+def _operands(ops, order, dims, strides, red):
+    return tuple(
         (ops[o] if isinstance(ops[o], torch.Tensor) else None,
          0 if isinstance(ops[o], torch.Tensor) else int(ops[o]),
          tuple(st[o] for _, st, _ in dims),
          strides[o][red] if red is not None else 0)
         for o in order
     )
+
+
+def plan(a, b, q, qinv_neg, dim: Optional[int] = None, fan_out: bool = True) -> Plan:
+    """Check the operands and lay them out for the kernel; reduce over
+    ``dim`` of their broadcast shape (K4) or over nothing (K3).  K4 takes a
+    fan-out form where the layout has one (``_fan_out``) unless ``fan_out``
+    is False.  Raises on anything the kernel does not take except the
+    device (``_run`` checks that on every call)."""
+    ops = (a, b, q, qinv_neg)
+    _check(ops)
+    full, strides, shape, dims, red = _layout(ops, dim)
+    terms = 1
+    if red is not None:
+        terms = full[red]
+        if terms < 1:
+            raise ValueError("empty reduction axis")
+        if terms > 1 and (strides[2][red] or strides[3][red]):
+            raise ValueError("the moduli must not vary along the reduction axis")
+    order, form = (0, 1, 2, 3), "general"
+    fan = _fan_out([(n, st) for n, st, _ in dims], ops, terms) if red is not None and fan_out else None
+    if fan is None:
+        dims = [_ONE] * (MAX_DIMS - len(dims)) + dims
+    else:
+        i, s, form = fan
+        order = (s, 1 - s, 2, 3)
+        rest = [d for n, d in enumerate(dims[:-1]) if n != i]
+        rest.sort(key=lambda d: d[1][1 - s] == 0)  # rows W is broadcast over run fastest
+        dims = [dims[i]] + [_ONE] * (MAX_DIMS - len(dims)) + rest + [dims[-1]]
+    sizes = tuple(n for n, _, _ in dims)
     threads = 256 if red is None else _threads(form, sizes, terms)
-    return Plan(shape, sizes, tuple(os for _, _, os in dims), operands, order, terms, form, threads)
+    return Plan(shape, sizes, tuple(os for _, _, os in dims), _operands(ops, order, dims, strides, red),
+                order, terms, form, threads)
+
+
+def _row_threads(rows: int, inner: int) -> int:
+    """The most threads a block (256, 128, 64) that leave a launch of `rows`
+    rows of `inner` words, 4 words a thread, at least MIN_BLOCKS blocks;
+    else 64."""
+    for t in (256, 128, 64):
+        if rows * -(-inner // (4 * t)) >= MIN_BLOCKS:
+            return t
+    return 64
+
+
+def elem_plan(a, b, q) -> Plan:
+    """K5's layout of ``a op b mod q`` (b 0 for neg and reduce): the
+    collapsed dimensions with the fan-out first -- the largest dimension
+    that a and b are both broadcast over (the moduli of a digit
+    decomposition), which a thread walks after one read of a and b -- or a
+    fan-out of 1; ``form`` "general", one term.  Raises as ``plan``."""
+    ops = (a, b, q, 0)
+    _check(ops, ELEM_NAMES, "modular kernels")
+    _, strides, shape, dims, _ = _layout(ops, None)
+    fans = [i for i, (n, st, _) in enumerate(dims[:-1]) if not st[0] and not st[1]]
+    if fans:
+        i = max(fans, key=lambda i: dims[i][0])
+        dims = [dims[i]] + [_ONE] * (MAX_DIMS - len(dims)) + [d for n, d in enumerate(dims) if n != i]
+    else:
+        dims = [_ONE] * (MAX_DIMS - len(dims)) + dims
+    sizes = tuple(n for n, _, _ in dims)
+    return Plan(shape, sizes, tuple(os for _, _, os in dims),
+                _operands(ops, (0, 1, 2, 3), dims, strides, None), (0, 1, 2, 3), 1, "general",
+                _row_threads(int(np.prod(sizes[1:-1])), sizes[-1]))
 
 
 _Desc = ctypes.c_longlong * DESC_WORDS
@@ -306,25 +396,38 @@ def _vector_operands(p: Plan):
     return tuple(need)
 
 
-def _run(name: str, a, b, q, qinv_neg, dim, lazy: bool, fan_out: bool = True) -> torch.Tensor:
+def _check_device(a, ops, what):
+    if a.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {a.device}")
+    for x in ops:
+        if isinstance(x, torch.Tensor) and x.device != a.device:
+            raise ValueError(f"operands on several devices: {a.device} and {x.device}")
+
+
+def _launched(name: str, rc: int, lib):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.hhe_mont_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+def _run(name: str, a, b, q, qinv_neg, dim, lazy: bool, fan_out: bool = True,
+         op: Optional[str] = None) -> torch.Tensor:
     """Check (or find checked) the layout, then launch on a's device and
-    current stream.  The wrapper runs on every call, so a layout is planned
-    once and kept."""
+    current stream: K3 / K4 (``hhe_mont``), or K5 (``hhe_mod_elem``) where
+    `op` names one of ``ELEM_OPS``.  The wrapper runs on every call, so a
+    layout is planned once and kept."""
     ops = (a, b, q, qinv_neg)
-    key = (dim, lazy, fan_out, *map(_layout_key, ops))
+    key = (name, dim, lazy, fan_out, *map(_layout_key, ops))
     hit = _PLANS.get(key)
     if hit is None:
-        p = plan(a, b, q, qinv_neg, dim, fan_out)
+        p = elem_plan(a, b, q) if op is not None else plan(a, b, q, qinv_neg, dim, fan_out)
         if len(_PLANS) >= _MAX_PLANS:
             _PLANS.clear()
         hit = _PLANS[key] = (p.shape, _descriptor(p, lazy, a.dtype), p.order, _vector_operands(p),
                              p.form)
     shape, static, order, vec, form = hit
-    if a.device.type != "cuda":
-        raise ValueError(f"Montgomery kernel needs CUDA tensors, got {a.device}")
-    for x in ops[1:]:
-        if isinstance(x, torch.Tensor) and x.device != a.device:
-            raise ValueError(f"operands on several devices: {a.device} and {x.device}")
+    _check_device(a, ops[1:], f"{name} kernel")
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
@@ -337,13 +440,14 @@ def _run(name: str, a, b, q, qinv_neg, dim, lazy: bool, fan_out: bool = True) ->
     desc[4] = int(vec is not None and all(kops[o].data_ptr() % ALIGN == 0 for o in vec))
     dev = a.device.index
     lib = _library()
-    rc = lib.hhe_mont(desc, dev, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({lib.hhe_mont_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
-    if name == "mont_mac":
-        FORM_LAUNCHES[form] += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if op is not None:
+        _launched(name, lib.hhe_mod_elem(desc, ELEM_OPS.index(op), dev, stream), lib)
+        OP_LAUNCHES[op] += 1
+    else:
+        _launched(name, lib.hhe_mont(desc, dev, stream), lib)
+        if name == "mont_mac":
+            FORM_LAUNCHES[form] += 1
     return out
 
 
@@ -365,7 +469,114 @@ def mont_mac(a, b_mont, q, qinv_neg, dim: int, fan_out: bool = True) -> torch.Te
     return _run("mont_mac", a, b_mont, q, qinv_neg, dim, False, fan_out)
 
 
+def mod_elem(op: str, a, b, q) -> torch.Tensor:
+    """K5, one launch: ``op`` ("add", "sub", "neg" or "reduce") of a (and b)
+    modulo q over the broadcast shape, in u32 arithmetic, a's dtype: a + b
+    less q if >= q; a - b, plus q if a < b; q - a unless a = 0; a less q
+    three times where >= q."""
+    return _run("mod_elem", a, b, q, 0, None, False, op=op)
+
+
+class DownPlan(NamedTuple):
+    """K6's launch for c [..., k + 1, N]: the output's shape; k, N; c's
+    limb and innermost strides; c's leading sizes and strides, collapsed
+    to ``MAX_LEAD`` (the output's rows, in order); the four [k, 1]
+    constant columns (q, qinv, P mod q, Mont(P^-1 mod q)) and their limb
+    strides; p_half; a block's threads; the limb groups over the grid's
+    third axis; whether the layout allows the 16-byte path."""
+
+    shape: Tuple[int, ...]
+    k: int
+    inner: int
+    limb_stride: int
+    inner_stride: int
+    lead_sizes: Tuple[int, ...]
+    lead_strides: Tuple[int, ...]
+    cols: Tuple[torch.Tensor, ...]
+    col_strides: Tuple[int, ...]
+    p_half: int
+    threads: int
+    zsplit: int
+    vec: bool
+
+
+def down_plan(c, q, qinv_neg, p_mod_q, p_inv_mont, p_half) -> DownPlan:
+    """Check K6's operands and lay them out; raises on anything the kernel
+    does not take except the device."""
+    if not isinstance(c, torch.Tensor) or c.dtype not in (torch.int32, torch.int64) or c.dim() < 2:
+        raise TypeError("c must be an int32 or int64 tensor [..., k + 1, N]")
+    k, inner = c.shape[-2] - 1, c.shape[-1]
+    if k < 1 or inner < 1:
+        raise ValueError(f"c {tuple(c.shape)} has no data limb or no word")
+    cols = (q, qinv_neg, p_mod_q, p_inv_mont)
+    for name, x in zip(DOWN_NAMES, cols):
+        if not isinstance(x, torch.Tensor) or x.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be an int32 or int64 tensor")
+        if tuple(x.shape) != (k, 1):
+            raise ValueError(f"{name} {tuple(x.shape)} is not a [{k}, 1] column")
+    if isinstance(p_half, bool) or not isinstance(p_half, (int, np.integer)) or not 0 <= p_half < 1 << 32:
+        raise ValueError(f"p_half = {p_half!r} is not a u32 value")
+    lead = _collapse([(n, [st]) for n, st in zip(c.shape[:-2], c.stride()[:-2])])
+    lead = [(n, st) for n, (st,) in lead]
+    if len(lead) > MAX_LEAD:
+        raise ValueError(f"c's leading dimensions do not collapse to {MAX_LEAD}: {tuple(c.shape)}")
+    lead = [(1, 0)] * (MAX_LEAD - len(lead)) + lead
+    rows = int(np.prod([n for n, _ in lead]))
+    threads = _row_threads(rows, inner)
+    blocks = rows * -(-inner // (4 * threads))
+    limb_stride, inner_stride = c.stride(-2), c.stride(-1)
+    vec = (inner % 4 == 0 and inner_stride == 1 and limb_stride % 4 == 0
+           and all(st % 4 == 0 for _, st in lead))
+    return DownPlan((*c.shape[:-2], k, inner), k, inner, limb_stride, inner_stride,
+                    tuple(n for n, _ in lead), tuple(st for _, st in lead), cols,
+                    tuple(x.stride(0) for x in cols), int(p_half), threads,
+                    min(k, max(1, -(-MIN_BLOCKS // blocks))), vec)
+
+
+_DownDesc = ctypes.c_longlong * DOWN_DESC_WORDS
+_DOWN_PLANS = {}
+
+
+def _down_descriptor(p: DownPlan, dtype) -> "ctypes.Array":
+    """``hhe_mod_down``'s descriptor for plan `p`, pointers and vec left 0."""
+    words = [0, int(dtype == torch.int64), 0, p.threads, p.zsplit, p.k, p.inner, p.limb_stride,
+             p.p_half, 0, int(dtype == torch.int64), p.inner_stride, *p.lead_sizes, *p.lead_strides]
+    for x, st in zip(p.cols, p.col_strides):
+        words += [0, int(x.dtype == torch.int64), st]
+    return _DownDesc(*words)
+
+
+def mod_down(c, q, qinv_neg, p_mod_q, p_inv_mont, p_half) -> torch.Tensor:
+    """K6, one launch: divide-and-round by the special prime P of c [..., k
+    + 1, N] (row k: the residues mod P) -> [..., k, N] over q, c's dtype
+    (``bfv_eval.mod_down_plain``'s bits).  q, qinv_neg, p_mod_q (P mod q)
+    and p_inv_mont (Mont(P^-1 mod q)) are [k, 1] columns, p_half = P // 2."""
+    cols = (q, qinv_neg, p_mod_q, p_inv_mont)
+    key = (_layout_key(c), *map(_layout_key, cols), p_half)
+    hit = _DOWN_PLANS.get(key)
+    if hit is None:
+        p = down_plan(c, *cols, p_half)
+        if len(_DOWN_PLANS) >= _MAX_PLANS:
+            _DOWN_PLANS.clear()
+        hit = _DOWN_PLANS[key] = (p.shape, _down_descriptor(p, c.dtype), p.vec)
+    shape, static, vec = hit
+    _check_device(c, cols, "mod_down kernel")
+    out = torch.empty(shape, dtype=c.dtype, device=c.device)
+    if out.numel() == 0:
+        return out
+    desc = _DownDesc.from_buffer_copy(static)
+    desc[0] = out.data_ptr()
+    desc[2] = int(vec and c.data_ptr() % ALIGN == 0)
+    desc[_DOWN_C] = c.data_ptr()
+    for o, x in enumerate(cols):
+        desc[_DOWN_C + 3 + 2 * MAX_LEAD + 3 * o] = x.data_ptr()
+    dev = c.device.index
+    lib = _library()
+    _launched("mod_down", lib.hhe_mod_down(desc, dev, torch.cuda.current_stream(dev).cuda_stream), lib)
+    return out
+
+
 def reset_launches():
-    for counts in (LAUNCHES, FORM_LAUNCHES):
+    for counts in (LAUNCHES, FORM_LAUNCHES, OP_LAUNCHES):
         for key in counts:
             counts[key] = 0

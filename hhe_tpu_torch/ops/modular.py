@@ -16,10 +16,16 @@ Every function returns the dtype of its first tensor argument; tables and
 constants are int64 ``[k, 1]`` columns that broadcast against ``[..., k, N]``.
 ``host`` is the numpy u64 golden model.
 
-``mont_mul``, ``mont_mul_lazy`` and ``mont_mac`` send a CUDA tensor ``a`` to
-the hand-written kernels of ``mod_kernels`` (K3, K4), which raise on what
-they do not take, and a CPU tensor to their plain versions
-(``mont_mul_plain``, ``mont_mul_lazy_plain``, ``mont_mac_plain``).
+``mont_mul``, ``mont_mul_lazy``, ``mont_mac``, ``add_mod``, ``sub_mod`` and
+``neg_mod`` send a CUDA tensor ``a`` to the hand-written kernels of
+``mod_kernels`` (K3, K4, and K5 for the last three), which raise on what
+they do not take, and a CPU tensor to their plain versions (``*_plain``).
+The kernels read every operand as u32 bits (an int64 by its low 32), the
+plain versions compute exactly in int64: the two agree for operands in
+[0, 2^31), and for ``sub_mod`` / ``neg_mod`` below their row's q (there
+a + q - b and q - a stay non-negative; the kernel wraps them mod 2^32),
+which every caller passes.  Plain code that must stay plain on the card
+(the NTT stage loop, ``mont_mac_plain``) calls the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -133,30 +139,59 @@ def mont_mul_lazy_plain(a, b_mont, q, qinv_neg):
 
 
 def mont_mac_plain(a, b_mont, q, qinv_neg, dim: int):
-    """Plain version of ``mont_mac``: the products, then ``tree_add_mod``
+    """Plain version of ``mont_mac``: the products, then ``tree_add_mod_plain``
     (the JAX package's ``tree_add_mod(mont_mul(...))``)."""
     t = mont_mul_plain(a, b_mont, q, qinv_neg)
-    return tree_add_mod(t, q, axis=dim).select(dim, 0)
+    return tree_add_mod_plain(t, q, axis=dim).select(dim, 0)
 
 
 def add_mod(a, b, q):
+    """a + b mod q (a, b < q), in a's dtype."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mod_elem("add", a, b, q)
+    return add_mod_plain(a, b, q)
+
+
+def sub_mod(a, b, q):
+    """a - b mod q (a, b < q), in a's dtype."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mod_elem("sub", a, b, q)
+    return sub_mod_plain(a, b, q)
+
+
+def neg_mod(a, q):
+    """-a mod q (a < q), in a's dtype."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mod_elem("neg", a, 0, q)
+    return neg_mod_plain(a, q)
+
+
+def add_mod_plain(a, b, q):
+    """Plain version of ``add_mod`` (int64 PyTorch)."""
     s = _w(a) + _w(b)
     q = _w(q)
     return _like(torch.where(s >= q, s - q, s), a)
 
 
-def sub_mod(a, b, q):
+def sub_mod_plain(a, b, q):
+    """Plain version of ``sub_mod``."""
     a64, b64 = _w(a), _w(b)
     return _like(torch.where(a64 >= b64, a64 - b64, a64 + _w(q) - b64), a)
 
 
-def neg_mod(a, q):
+def neg_mod_plain(a, q):
+    """Plain version of ``neg_mod``."""
     a64 = _w(a)
     return _like(torch.where(a64 == 0, a64, _w(q) - a64), a)
 
 
-def tree_add_mod(t, q, axis=0):
-    """Log-depth modular sum along ``axis`` (keeps the axis, size 1)."""
+def _tree_add(t, q, axis, add):
     axis = axis % t.ndim
     n = t.shape[axis]
     if n & (n - 1):  # pad once to a power of two (0 is the add_mod identity)
@@ -165,8 +200,19 @@ def tree_add_mod(t, q, axis=0):
         t = torch.cat([t, t.new_zeros(pad_shape)], dim=axis)
     while t.shape[axis] > 1:
         half = t.shape[axis] // 2
-        t = add_mod(t.narrow(axis, 0, half), t.narrow(axis, half, half), q)
+        t = add(t.narrow(axis, 0, half), t.narrow(axis, half, half), q)
     return t
+
+
+def tree_add_mod(t, q, axis=0):
+    """Log-depth modular sum along ``axis`` (keeps the axis, size 1), each
+    level one ``add_mod`` (K5 on the card)."""
+    return _tree_add(t, q, axis, add_mod)
+
+
+def tree_add_mod_plain(t, q, axis=0):
+    """Plain version of ``tree_add_mod``: every level ``add_mod_plain``."""
+    return _tree_add(t, q, axis, add_mod_plain)
 
 
 def to_mont(a, r2_mont, q, qinv_neg):

@@ -198,7 +198,7 @@ def _fwd_stages(x: torch.Tensor, tb: NttTables, stop: int) -> torch.Tensor:
         u = yv[..., 0, :]
         v = modular.mont_mul_plain(yv[..., 1, :], s, q, qi)
         y = torch.stack(
-            [modular.add_mod(u, v, q), modular.sub_mod(u, v, q)], dim=-2
+            [modular.add_mod_plain(u, v, q), modular.sub_mod_plain(u, v, q)], dim=-2
         ).reshape(*lead, k, n)
         m *= 2
     return y.to(x.dtype)
@@ -219,8 +219,8 @@ def _inv_stages(x: torch.Tensor, tb: NttTables, h: int) -> torch.Tensor:
         v = yv[..., 1, :]
         y = torch.stack(
             [
-                modular.add_mod(u, v, q),
-                modular.mont_mul_plain(modular.sub_mod(u, v, q), s, q, qi),
+                modular.add_mod_plain(u, v, q),
+                modular.mont_mul_plain(modular.sub_mod_plain(u, v, q), s, q, qi),
             ],
             dim=-2,
         ).reshape(*lead, k, n)

@@ -142,7 +142,19 @@ def fbc_digits_to_pow2(tmp: torch.Tensor, tilde_mod: np.ndarray, bits: int) -> t
 
 
 def reduce_u32(x: torch.Tensor, q) -> torch.Tensor:
-    """Reduce values < 2^31 modulo q (q >= 2^29): <= 3 conditional subtracts."""
+    """Reduce values < 2^31 modulo q (q >= 2^29): exactly three conditional
+    subtracts, over the broadcast of x and q, in x's dtype; a CUDA x goes to
+    the K5 kernel (``mod_kernels.mod_elem``), a CPU x to
+    ``reduce_u32_plain``."""
+    if x.is_cuda:
+        from . import mod_kernels
+
+        return mod_kernels.mod_elem("reduce", x, 0, q)
+    return reduce_u32_plain(x, q)
+
+
+def reduce_u32_plain(x: torch.Tensor, q) -> torch.Tensor:
+    """Plain version of ``reduce_u32`` (int64 PyTorch)."""
     r = x.to(torch.int64)
     q = q.to(torch.int64) if isinstance(q, torch.Tensor) else q
     for _ in range(3):
