@@ -26,13 +26,27 @@ Phases (any failure propagates and the exit code is nonzero):
    (``check_elem_sites``);
 3. ECG path (the main path): ``build_stack`` at the production BFV
    parameters (N=16384, 13 x 30-bit limbs, device keygen), then
-   ``hhe_ecg_inference`` on B=64 samples.  Predictions must equal the
-   plaintext model's, one decomposed sample must decrypt to its input with
-   >= 40 bits of noise budget, and K1-K6 must have launched during the
-   run.  Then the timings: decompose at B=64 with a fresh nonce per rep
-   (PASTA encryption outside the timed region), one keystream block, the FC
-   product, the batched decrypt; and one keystream block under
-   ``torch.profiler`` (device busy time by kernel).  On the same stack:
+   ``hhe_ecg_inference`` on B=64 samples twice: the first run calls each
+   ``utils.graphs`` unit (expand, keystream, finish, the 1FC evaluation)
+   for the first time, so it runs the unit's body and then captures it;
+   the second, the keystream caches cleared, replays every unit.  Both
+   runs' launch counts and calls per layout must be equal (replays
+   credited), and so must their predictions; each unit must have replayed
+   in the second.  Predictions must equal the plaintext model's, one
+   decomposed sample must decrypt to its input with >= 40 bits of noise
+   budget, and K1-K6 must have launched during the run.  Then the
+   timings: decompose at B=64 with a fresh nonce per rep (PASTA
+   encryption outside the timed region) through the entry point and
+   through the units' bodies (equal bits), one keystream block through
+   its body (``block_ms``) and replayed (``block_graph_ms``), the
+   expansion replayed and through its body, the FC product through the
+   entry point and its body, the batched decrypt; and one keystream block
+   under ``torch.profiler`` (device busy time by kernel), replayed and
+   through its body.  The graphs phase: each unit of the stack captured
+   afresh in a pool of its own, its replay equal to its body on two
+   inputs and the first replay's result unchanged by the second (the
+   outputs are clones); capture, replay and eager ms, the kernels inside
+   the graph and the pool's GiB (``check_unit``).  On the same stack:
    ``mod_switch_to_next`` of the decomposed sample from 13 limbs to one,
    decrypting right at every level, with ``cipher_size`` before and after;
    then the parallel path at world size 1 (a one-rank NCCL group): the
@@ -70,8 +84,10 @@ Phases (any failure propagates and the exit code is nonzero):
    checkpoint split across repeated ``HHEDecomp`` entries) returns results
    that must decrypt to x @ w exactly, with predictions (x @ w > 0); the
    three secret keys must differ and K1-K6 must launch; per-party ms
-   and per-edge MB, the decompose wall, evaluation ms a ciphertext, the
-   key set's publish time, one result's noise budget, peak memory;
+   and per-edge MB, the decompose wall, evaluation ms a ciphertext (the
+   CSP's unit replayed) and through the unit's body, the key set's
+   publish time, one result's noise budget, peak memory; the CSP's
+   per-ciphertext unit through ``check_unit``;
    4c. the CLI: ``python -m hhe_tpu_torch.parties.cli`` csp, analyst and
    user as three processes on the card at the CLI's defaults (N=16384, 13
    limbs, --input-len 300, --rows 2) with surrogate CSVs; the analyst's
@@ -83,7 +99,9 @@ Phases (any failure propagates and the exit code is nonzero):
    MNIST 2FC: ``hhe_2fc_inference`` (784 -> 128 -> square -> 10) on B=4 at
    MNIST_LIMBS limbs, MNIST_ROW_CHUNK rows a pass, its hard mod-t parity;
    an untimed warm-up with the stage budgets, then the timed run:
-   inferences/s, the transcipher's and the 2FC pass's time, peak memory;
+   inferences/s, the transcipher's and the 2FC pass's time, peak memory
+   with the units' graphs alive and their pool; the transcipher units at
+   B=4 through ``check_unit``;
    HCNN: ``he_mnist_conv_inference`` (conv 1->5 -> square -> conv 5->50 ->
    square -> fc 800->10, the reference's pure-HE speed test) at N=16384 /
    HCNN_LIMBS limbs and the 47-bit t on surrogate MNIST idx files: QAT on
@@ -133,6 +151,9 @@ Phases (any failure propagates and the exit code is nonzero):
 
 Each path's launch counts are set to 0 just before it and read just after;
 every path of phases 3-6 must launch K1-K6 (the top passes where N > 16384).
+A unit's replay adds to them (and to ``ShapeRecorder``'s calls per layout)
+what its capture counted, so they are an eager run's counts; each path of
+``PATH_UNITS`` must replay its units (``graphs.REPLAYS``).
 Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
 """
 
@@ -204,6 +225,7 @@ PARTY_CSP = "localhost:50591"
 PARTY_ANALYSTS = ((FC_L, 32, "localhost:50592"), (128, 16, "localhost:50593"))  # L, x < hi
 CLI_ANALYST, CLI_CSP = "localhost:50594", "localhost:50595"
 PARTY_WAIT_S = 600  # the longest one party step may take
+EVAL_EAGER_CTS = 8  # ciphertexts of a checkpoint the CSP's unit body is timed on
 
 
 def log(msg: str):
@@ -251,9 +273,38 @@ TOP_KERNELS = ("ntt_fwd_top", "ntt_inv_top")
 
 def reset_launches():
     from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
+    from hhe_tpu_torch.utils import graphs
 
     ntt_kernels.reset_launches()
     mod_kernels.reset_launches()
+    graphs.reset_counts()
+
+
+# the units (utils.graphs names) each path must replay: those it calls
+# again at a layout it has captured.  Other paths, and units a path calls
+# once at a layout (the L=128 analyst's expand and keystream among the
+# parties, each stack's first keystream block in the large preset), are
+# reported with their replays and captures but not held to them.
+PATH_UNITS = {
+    "ecg": ("expand", "keystream", "finish", "eval_1fc"),
+    "ecg_full": ("expand", "keystream", "finish", "eval_1fc"),
+    "1fc": ("keystream_seeded", "finish", "eval_1fc"),
+    "parties": ("keystream_seeded", "finish", "csp_eval"),
+    "fmnist_1fc": ("keystream_seeded", "finish"),
+    "mnist_2fc": ("keystream_seeded", "finish"),
+}
+
+
+def graph_counts(path: str) -> dict:
+    """The units' replays and captures since ``reset_launches``; raises
+    where a unit of ``PATH_UNITS[path]`` did not replay."""
+    from hhe_tpu_torch.utils import graphs
+
+    out = {"replays": dict(graphs.REPLAYS), "captures": dict(graphs.CAPTURES)}
+    missing = [u for u in PATH_UNITS.get(path, ()) if not graphs.REPLAYS[u]]
+    if missing:
+        raise AssertionError(f"{path}: units {missing} did not replay: {out}")
+    return out
 
 
 def launch_counts() -> dict:
@@ -727,48 +778,95 @@ class ShapeRecorder:
     ``calls["ntt_inv"]``), the operand layout of every K3 / K4 call
     (``calls["mont"]``: (wrapper, dim, a, b, q, qinv_neg) layouts), of every
     K5 call (``calls["elem"]``: (op, a, b, q)) and of every K6 call
-    (``calls["down"]``: (c, q) layouts), without touching the wrappers or
-    their launch counts."""
+    (``calls["down"]``: (c, q) layouts), without touching the wrappers'
+    launch counts.
 
-    def __init__(self):
+    While a recorder is entered, and during every capture of a
+    ``utils.graphs`` unit, the wrappers are patched to count each call into
+    ``TAPE``, whose counters ``graphs.COUNTERS`` holds: a unit's replay
+    credits the calls its capture made, as it credits the launch counts, so
+    that the calls per layout of a path are those of an eager run.  A
+    recorder's ``calls`` are TAPE's growth while it is entered.  ``install``
+    runs once, before any unit is captured."""
+
+    TAPE = None
+    _orig = None
+    _depth = 0
+
+    @classmethod
+    def install(cls):
         from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
+        from hhe_tpu_torch.utils import graphs
 
-        self.orig = [(ntt_kernels, name, getattr(ntt_kernels, name)) for name in ("ntt_fwd", "ntt_inv")]
-        self.orig += [(mod_kernels, name, getattr(mod_kernels, name))
+        if cls.TAPE is not None:
+            return
+        cls.TAPE = {name: collections.Counter()
+                    for name in ("ntt_fwd", "ntt_inv", "mont", "elem", "down")}
+        graphs.COUNTERS.extend(cls.TAPE.values())
+        cls._orig = [(ntt_kernels, name, getattr(ntt_kernels, name)) for name in ("ntt_fwd", "ntt_inv")]
+        cls._orig += [(mod_kernels, name, getattr(mod_kernels, name))
                       for name in ("mont_mul", "mont_mul_lazy", "mont_mac", "mod_elem", "mod_down")]
-        self.calls = {name: collections.Counter()
-                      for name in ("ntt_fwd", "ntt_inv", "mont", "elem", "down")}
+        capture = graphs.Jit._capture
 
-    def __enter__(self):
-        for mod, name, fn in self.orig:
+        def recorded_capture(jit, key, args):
+            cls._patch()
+            try:
+                return capture(jit, key, args)
+            finally:
+                cls._unpatch()
+
+        graphs.Jit._capture = recorded_capture
+
+    @classmethod
+    def _patch(cls):
+        cls._depth += 1
+        if cls._depth > 1:
+            return
+        tape = cls.TAPE
+        for mod, name, fn in cls._orig:
             if name.startswith("ntt"):
                 def rec(x, tb, _fn=fn, _name=name):
-                    self.calls[_name][(tuple(x.shape), tb.moduli)] += 1
+                    tape[_name][(tuple(x.shape), tb.moduli)] += 1
                     return _fn(x, tb)
             elif name == "mod_elem":
                 def rec(op, a, b, q, _fn=fn):
                     key = (op, *map(mont_layout, (a, b, q)))
                     ELEM_MODULI.setdefault(key, q)
-                    self.calls["elem"][key] += 1
+                    tape["elem"][key] += 1
                     return _fn(op, a, b, q)
             elif name == "mod_down":
                 def rec(c, *consts, _fn=fn):
                     key = (mont_layout(c), mont_layout(consts[0]))
                     DOWN_CONSTS.setdefault(key, consts)
-                    self.calls["down"][key] += 1
+                    tape["down"][key] += 1
                     return _fn(c, *consts)
             else:
                 def rec(a, b, q, qi, *dim, _fn=fn, _name=name):
                     key = (_name, dim[0] if dim else None, *map(mont_layout, (a, b, q, qi)))
                     MONT_MODULI.setdefault(key, (q, qi))
-                    self.calls["mont"][key] += 1
+                    tape["mont"][key] += 1
                     return _fn(a, b, q, qi, *dim)
             setattr(mod, name, rec)
+
+    @classmethod
+    def _unpatch(cls):
+        cls._depth -= 1
+        if cls._depth == 0:
+            for mod, name, fn in cls._orig:
+                setattr(mod, name, fn)
+
+    def __init__(self):
+        self.install()
+        self.calls = None
+
+    def __enter__(self):
+        self._patch()
+        self.start = {name: collections.Counter(c) for name, c in self.TAPE.items()}
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.orig:
-            setattr(mod, name, fn)
+        self.calls = {name: c - self.start[name] for name, c in self.TAPE.items()}
+        self._unpatch()
 
 
 def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
@@ -1443,19 +1541,38 @@ def phase_main_path():
     x = rng.integers(0, 64, (B, transcipher.T))
     w = rng.integers(-508, 509, transcipher.T)
 
+    # the first run: each unit's first call runs its body, then captures it;
+    # the second, the keystream caches cleared, replays every unit.  Their
+    # launch counts and calls per layout must be equal (replays credited)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with ShapeRecorder() as rec:
+    with ShapeRecorder() as rec_eager:
         t0 = time.perf_counter()
         out = wk.hhe_ecg_inference(stack, w, x)
         torch.cuda.synchronize()
         stats["ecg_inference_s"] = time.perf_counter() - t0
+    eager_launches = launch_counts()
+    stats["first_run_graphs"] = graph_counts("first run")
+    stack.tc.clear_caches()
+    reset_launches()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        out2 = wk.hhe_ecg_inference(stack, w, x)
+        torch.cuda.synchronize()
+        stats["ecg_inference_replayed_s"] = time.perf_counter() - t0
     launches = launch_counts()
+    stats["graphs"] = graph_counts("ecg")
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main path: hhe_ecg_inference B={B} in {stats['ecg_inference_s']:.2f} s, "
-        f"launches {launches}")
+    log(f"main path: hhe_ecg_inference B={B} in {stats['ecg_inference_s']:.2f} s (bodies and "
+        f"captures), {stats['ecg_inference_replayed_s']:.2f} s (replays), launches {launches}, "
+        f"graphs {stats['graphs']}")
+    if launches != eager_launches or rec.calls != rec_eager.calls:
+        raise AssertionError(f"the replayed run's launches {launches} differ from the eager "
+                             f"run's {eager_launches}, or its calls per layout do")
     if min(launches[k] for k in PATH_KERNELS) == 0:  # no row longer than a tile here
         raise AssertionError(f"a kernel did not launch on the main path: {launches}")
+    if not np.array_equal(out["predictions"], out2["predictions"]):
+        raise AssertionError("the replayed run's predictions differ from the first run's")
 
     sums = (x.astype(np.int64) * w).sum(1)
     expect = np.where(pocketnn.simple_pocket_sigmoid(sums).numpy() > 64, 128, 0)
@@ -1471,34 +1588,65 @@ def phase_main_path():
     log(f"predictions equal the plaintext model ({n_one}/{B} positive); "
         f"decomposed sample 0 decrypts exactly, noise budget {budget} bits")
 
-    # decompose at B with a fresh nonce per rep; PASTA encryption outside
+    # decompose at B with a fresh nonce per rep, PASTA encryption outside:
+    # through the entry point (the units replayed) and through the units'
+    # bodies, which must give the same bits
     key = pasta.get_fixed_symmetric_key()
     cipher = pasta.Pasta(key, ctx.t)
     enc_key = stack.tc.encrypt_key(stack.pk, key)
+    tc = stack.tc
     nonce = 50_000
-    times = []
+    times, eager = [], []
     for _ in range(REPS + 1):  # the first rep warms the allocator
         sym = cipher.encrypt(x.astype(np.uint64), nonce=nonce)
-        times.append(wall_s(lambda: wk.csp_decompose(stack, enc_key, sym, nonce=nonce)))
+        got, t = timed(lambda: wk.csp_decompose(stack, enc_key, sym, nonce=nonce))
+        times.append(t)
+        want, t = timed(lambda: eager_decompose(tc, enc_key, sym, nonce))
+        eager.append(t)
+        if not torch.equal(got.data, want):
+            raise AssertionError("decompose through the replayed units differs from their bodies")
         nonce += 1
     stats["decompose_s_by_rep"] = times
+    stats["decompose_eager_s_by_rep"] = eager
+    stats["decompose_ms"] = 1e3 * min(times[1:])
+    stats["decompose_eager_ms"] = 1e3 * min(eager[1:])
     stats["pasta_bfv_transcipher_samples_per_s_batch64"] = B / min(times[1:])
 
-    tc = stack.tc
     mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
     keys = tc._keys()
     stats["block_ms"] = 1e3 * min(
         wall_s(lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys))
         for _ in range(REPS)
     )
+    block = (enc_key.data, mats_qp, rcs_pt, keys)
+    stats["block_graph_ms"] = 1e3 * min(wall_s(lambda: tc._jit_keystream(*block))
+                                        for _ in range(REPS))
+    stats["block_graph_device_ms"] = cuda_ms(lambda: tc._jit_keystream(*block), REPS)
     stats["expand_ms"] = 1e3 * min(
+        wall_s(lambda: tc._jit_expand(tc.block_first_rows(nonce, 0))) for _ in range(REPS)
+    )
+    stats["expand_eager_ms"] = 1e3 * min(
         wall_s(lambda: tc._expand_round_mats(tc.block_first_rows(nonce, 0)))
         for _ in range(REPS)
     )
+    # the host's share of a decompose outside the units, for a fresh nonce:
+    # a block's first rows (the SHAKE expansion, then cached) and its round
+    # constants (host encode and scaling, upload)
+    host = []
+    for _ in range(REPS):
+        nonce += 1
+        host.append((wall_s(lambda: tc.block_first_rows(nonce, 0)),
+                     wall_s(lambda: tc.block_rcs(nonce, 0))))
+    stats["block_first_rows_ms"] = 1e3 * min(h[0] for h in host)
+    stats["block_rcs_ms"] = 1e3 * min(h[1] for h in host)
     data_ct = out["data_ct"]
     wct = bfv.Ciphertext(helin_weight(stack, w).data[:, None])
     stats["csp_eval_1fc_ms"] = 1e3 * min(
         wall_s(lambda: wk.csp_eval_1fc(stack, data_ct, wct, do_sum=False)) for _ in range(REPS)
+    )
+    fc_body = stack._jit_1fc_False.fn
+    stats["csp_eval_1fc_eager_ms"] = 1e3 * min(
+        wall_s(lambda: fc_body(data_ct.data, wct.data, stack.rk, stack.gks)) for _ in range(REPS)
     )
     prod = out["prod_ct"]
     stats["decrypt_ms"] = 1e3 * min(
@@ -1790,8 +1938,10 @@ def phase_1fc():
     """The SpO2 1FC path: ``hhe_1fc_inference`` on B samples of L=300 words
     (three PASTA blocks, then mask, flatten, ct x ct, relinearize and the
     log-depth vec-sum), its hard parity check raising on any difference;
-    the noise budget after decompose+flatten and after FC+sum, and the
-    experiment report's per-party ms and per-edge MB."""
+    the noise budget after decompose+flatten and after FC+sum from a first
+    run (which captures the units), then the recorded run (which replays
+    them): its launches and the experiment report's per-party ms and
+    per-edge MB."""
     import torch
 
     from hhe_tpu_torch.ops import bfv
@@ -1808,6 +1958,13 @@ def phase_1fc():
     rng = np.random.default_rng(0)
     w = rng.integers(-3, 4, FC_L)
     x = rng.integers(0, 32, (B, FC_L))
+    # the stage budgets, as RunConfig's debugging prints them, from a first
+    # run (it captures the units), so that the host's noise budgets stay out
+    # of the timed report of the second, which replays them
+    budgets = debug_budgets(lambda: wk.hhe_1fc_inference(
+        stack, w, x, check_parity=True, run=RunConfig(dry_run=False, debugging=True)))
+    stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
+    stats["noise_budget_after_fc_sum"] = budgets["encrypted FC + vec_sum"]
     reset_launches()
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
@@ -1816,18 +1973,13 @@ def phase_1fc():
         torch.cuda.synchronize()
         stats["inference_s"] = time.perf_counter() - t0
     launches = launch_counts()
+    stats["graphs"] = graph_counts("1fc")
     if min(launches[k] for k in PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel did not launch on the 1FC path: {launches}")
     if not np.array_equal(out["raw"], x.astype(np.int64) @ w):
         raise AssertionError("1FC outputs differ from the plaintext model")
     stats["computation_ms"] = out["report"]["computation_ms"]
     stats["communication_mb"] = out["report"]["communication_mb"]
-    # the stage budgets, as RunConfig's debugging prints them; a second run,
-    # so that the host's noise budgets stay out of the timed report above
-    budgets = debug_budgets(lambda: wk.hhe_1fc_inference(
-        stack, w, x, check_parity=True, run=RunConfig(dry_run=False, debugging=True)))
-    stats["noise_budget_after_decompose_flatten"] = budgets["decomposition+flatten"]
-    stats["noise_budget_after_fc_sum"] = budgets["encrypted FC + vec_sum"]
     log(f"1fc: hhe_1fc_inference B={B} L={FC_L} at N=16384 / {FC_LIMBS} limbs: parity held, "
         f"launches {launches}")
     for key_, val in stats.items():
@@ -1872,7 +2024,7 @@ def phase_parties():
 
     rng = np.random.default_rng(15)
     stats = {"n": 16384, "limbs": 13, "batch": B, "analysts": {}}
-    servers, users, analysts = [], [], []
+    servers, users, analysts, checkpoints = [], [], [], {}
     tmp = tempfile.TemporaryDirectory()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1905,6 +2057,7 @@ def phase_parties():
                 st["decompose_s"] = csp_s() - before
                 path = os.path.join(tmp.name, f"p{L}_{a.uuid}.bin")
                 st["checkpoint_mb"] = os.path.getsize(path) / 2**20
+                checkpoints[L] = (addr, path)
 
                 requests = [("evaluateModelFromFile", pb.DataFile(filename=os.path.basename(path)))]
                 if L == FC_L:  # the checkpoint's ciphertexts, one frame an entry
@@ -1934,7 +2087,22 @@ def phase_parties():
                 res = csp.evaluate_model(addr, [ct0])[0]
                 st["result_noise_budget_bits"] = a.ctx.noise_budget(a.sk, res)
         launches = launch_counts()
+        stats["graphs"] = graph_counts("parties")
         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # after the path: each analyst's per-ciphertext unit (the graph
+        # that evaluateModel* replayed) against its body, eagerly, on
+        # EVAL_EAGER_CTS of its checkpoint's ciphertexts; the unit itself
+        # (unit 6) on two of the L=300 checkpoint's, through check_unit
+        for L, (addr, path) in checkpoints.items():
+            st_csp = csp.state(addr)
+            unit = csp._jit_eval(st_csp)
+            with open(path, "rb") as f:
+                cts = serial.load_ciphertext_vec(f.read(), csp.ctx.device)[:EVAL_EAGER_CTS]
+            args = [(ct.data, st_csp.weight_cts[0], st_csp.rk, st_csp.gks) for ct in cts]
+            stats["analysts"][L]["eval_eager_ms_per_ct"] = 1e3 * wall_s(
+                lambda: [unit.fn(*a) for a in args]) / len(args)
+            if L == FC_L:
+                stats["graph_unit_csp_eval"] = check_unit(unit, args[0], args[1])
         everyone = [t[3] for t in analysts] + users + [csp]
         timer, ledger = metrics.merge(timers=[p.timer for p in everyone],
                                       ledgers=[p.ledger for p in everyone])
@@ -2060,7 +2228,10 @@ def phase_cli():
             client = rpc.csp_client(CLI_CSP)
             client.call("evaluateModelFromFile", pb.DataFile(filename=f"c000101_{uuid}.bin"))
             client.close()
-            got = analyst.wait_for(r"predictions so far: \[([-\d, ]*)\]")[1]
+            # the analyst prints what it has every 5 s, so wait for a line
+            # with a prediction for each row
+            got = analyst.wait_for(r"predictions so far: \[(%s)\]"
+                                   % ", ".join([r"-?\d+"] * len(expect)))[1]
             stats["predictions_s"] = time.perf_counter() - t0
             stats["predictions"] = [int(v) for v in got.split(",")]
             if stats["predictions"] != expect:
@@ -2100,6 +2271,7 @@ def phase_ecg_full(stack, samples):
         files = reference_files(tmp, fc1_weight=rng.integers(-508, 509, (transcipher.T, 1)))
         np.savetxt(os.path.join(tmp, "mitbih_bin_y_test.csv"),
                    rng.integers(0, 2, MITBIH_TEST_ROWS), fmt="%d")
+        stack.tc.clear_caches()  # so that the round material is expanded again, by a replay
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         with ShapeRecorder() as rec:
@@ -2107,12 +2279,13 @@ def phase_ecg_full(stack, samples):
                 stack, files["fc1_weight"], batch=ECG_FULL_BATCH, eval_batch=B, run=run,
                 labels_root=tmp))
         launches = launch_counts()
+        graph_stats = graph_counts("ecg_full")
     rep = out["report"]
     stats = {"samples": rep["samples"], "batch": ECG_FULL_BATCH, "eval_batch": B,
              "wall_s": wall, "samples_per_s": rep["samples"] / wall,
              "agreement": out["agreement"],
              "computation_ms": rep["computation_ms"], "communication_mb": rep["communication_mb"],
-             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "graphs": graph_stats}
     log(f"ecg_full: hhe_ecg_full_inference over {rep['samples']} samples, launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
@@ -2179,6 +2352,7 @@ def phase_fmnist():
         with ShapeRecorder() as rec:
             out, stats["inference_s"] = timed(run)
         launches = launch_counts()
+        stats["graphs"] = graph_counts("fmnist_1fc")
         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         budgets = debug_budgets(lambda: run(RunConfig(dry_run=False, debugging=True)))
     stats["computation_ms"] = out["report"]["computation_ms"]
@@ -2260,7 +2434,10 @@ def phase_mnist_2fc():
     with ShapeRecorder() as rec, PhaseTimer(wk, ("csp_decompose", "csp_eval_2fc")) as pt:
         out, stats["inference_s"] = timed(run)
     launches = launch_counts()
+    stats["graphs"] = graph_counts("mnist_2fc")
+    # the peak with the units' graphs (the seeded keystream's among them) alive
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["graph_pool_gib"] = pool_bytes(stack.ctx) / 2**30
     stats["transcipher_s"] = pt.seconds["csp_decompose"]
     stats["eval_2fc_s"] = pt.seconds["csp_eval_2fc"]
     stats["inferences_per_s"] = MNIST_B / (stats["transcipher_s"] + stats["eval_2fc_s"])
@@ -2273,6 +2450,8 @@ def phase_mnist_2fc():
         stats[f"peak_mem_gib_row_chunk_{2 * MNIST_ROW_CHUNK}"] = torch.cuda.max_memory_allocated() / 2**30
     except torch.cuda.OutOfMemoryError:
         stats[f"peak_mem_gib_row_chunk_{2 * MNIST_ROW_CHUNK}"] = "out of memory"
+    free_device()
+    stats["graph_units"] = phase_graphs(stack, MNIST_B, with_eval=False)
     log(f"mnist_2fc: B={MNIST_B}, 784 -> 128 -> square -> 10 at N=16384 / {MNIST_LIMBS} limbs, "
         f"row_chunk {MNIST_ROW_CHUNK}: parity held, launches {launches}")
     for key_, val in stats.items():
@@ -2503,13 +2682,121 @@ def phase_large_keystream():
         wall_s(lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys))
         for _ in range(REPS)
     )
+    stats["block_graph_ms"] = 1e3 * min(
+        wall_s(lambda: tc._jit_keystream(enc_key.data, mats_qp, rcs_pt, keys))
+        for _ in range(REPS)
+    )
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"large preset (b): one keystream block at N=65536, {LARGE_KS_LIMBS} limbs, t={ctx.t}: "
         f"decrypts to the plain PASTA keystream; launches {launches}")
     for key_, val in stats.items():
         log(f"  {key_}: {val}")
-    stats["profile"] = phase_profile(tc, enc_key, stats["block_ms"], "large keystream")
+    stats["profile"] = phase_profile(tc, enc_key, stats["block_ms"], "large keystream",
+                                     stats["block_graph_ms"])
     return stats, launches, rec.calls
+
+
+def pool_bytes(owner) -> int:
+    """Bytes of the card's memory in ``owner``'s graph pool: its segments
+    in the caching allocator's snapshot."""
+    import torch
+
+    handle = getattr(owner, "_graph_pool", None)
+    if handle is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(handle))
+
+
+def check_unit(unit, args_a, args_b) -> dict:
+    """A ``utils.graphs`` unit captured afresh, in a pool of its own, on
+    inputs ``args_a``: its replay must equal its eager body bit for bit on
+    ``args_a`` and then on ``args_b``, and the first replay's result must
+    be unchanged by the second (the outputs are clones).  Returns the
+    capture's ms, the replay's ms (CUDA events over REPS calls, and the
+    least wall of a call with the device synchronised), the body's least
+    wall ms, the port's kernel launches inside the graph and the pool's
+    GiB."""
+    import types
+
+    import torch
+
+    from hhe_tpu_torch.utils import graphs
+
+    owner = types.SimpleNamespace()
+    probe = graphs.jit(unit.fn, unit.name, owner)
+    first = graphs._tuple(probe(*args_a))  # the body, then the capture
+    entry = probe.entry(*args_a)
+    want_a, want_b = graphs._tuple(unit.fn(*args_a)), graphs._tuple(unit.fn(*args_b))
+    got_a = graphs._tuple(probe(*args_a))
+    kept = tuple(t.clone() for t in got_a)
+    got_b = graphs._tuple(probe(*args_b))
+    torch.cuda.synchronize()
+    same = (all(map(torch.equal, first, want_a)) and all(map(torch.equal, got_a, want_a))
+            and all(map(torch.equal, got_b, want_b)) and all(map(torch.equal, got_a, kept)))
+    if not same or entry.replays != 2:
+        raise AssertionError(f"graphs: unit {unit.name}'s replay differs from its body "
+                             f"(or did not replay: {entry.replays})")
+    row = {"capture_ms": 1e3 * entry.capture_s,
+           "replay_ms": cuda_ms(lambda: probe(*args_a), REPS),
+           "replay_wall_ms": 1e3 * min(wall_s(lambda: probe(*args_a)) for _ in range(REPS)),
+           "eager_ms": 1e3 * min(wall_s(lambda: unit.fn(*args_a)) for _ in range(REPS)),
+           "kernels_in_graph": entry.kernels,
+           "pool_gib": pool_bytes(owner) / 2**30}
+    log(f"graphs: {unit.name}: replay equals its body on two inputs, the first result kept; "
+        f"{row}")
+    return row
+
+
+def phase_graphs(stack, batch, with_eval=True) -> dict:
+    """The graphs phase on `stack`: each transcipher unit (expand,
+    keystream, seeded keystream, finish of `batch` samples) and, with
+    ``with_eval``, the 1FC evaluation without the sum on two decomposed
+    batches, through ``check_unit``; and the GiB of the stack's own pool,
+    which every unit of its context shares."""
+    from hhe_tpu_torch.ops import bfv, pasta, transcipher
+    from hhe_tpu_torch.workloads import hhe_inference as wk
+
+    tc, ctx = stack.tc, stack.ctx
+    enc_key = tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
+    keys = tc._keys()
+    rng = np.random.default_rng(16)
+    rows = [tc.block_first_rows(70_000 + i, 0) for i in range(2)]
+    rcs = [tc.block_rcs(70_000 + i, 0) for i in range(2)]
+    mats = [tc._expand_round_mats(r) for r in rows]
+    kss = [tc._keystream_impl(enc_key.data, m, r, keys) for m, r in zip(mats, rcs)]
+    chunks = [ctx.to_device(rng.integers(0, ctx.t, (batch, transcipher.T)).astype(np.uint64))
+              for _ in range(2)]
+    cases = [(tc._jit_expand, [(r,) for r in rows]),
+             (tc._jit_keystream, [(enc_key.data, m, r, keys) for m, r in zip(mats, rcs)]),
+             (tc._jit_keystream_seeded, [(enc_key.data, ro, r, keys) for ro, r in zip(rows, rcs)]),
+             (tc._jit_finish, list(zip(kss, chunks)))]
+    if with_eval:
+        data = [tc._finish_impl(k, c) for k, c in zip(kss, chunks)]
+        wct = helin_weight(stack, rng.integers(-3, 4, transcipher.T)).data[:, None]
+        wk.csp_eval_1fc(stack, bfv.Ciphertext(data[0]), bfv.Ciphertext(wct),
+                        do_sum=False)  # the stack's unit, where no earlier call made it
+        cases.append((stack._jit_1fc_False, [(d, wct, stack.rk, stack.gks) for d in data]))
+    out = {}
+    for unit, (a, b) in cases:
+        out[unit.name] = check_unit(unit, a, b)
+        free_device()
+    out["stack_pool_gib"] = pool_bytes(ctx) / 2**30
+    log(f"graphs: the stack's shared pool {out['stack_pool_gib']:.3f} GiB")
+    return out
+
+
+def eager_decompose(tc, enc_key, sym, nonce):
+    """``Transcipher.decompose`` of one block of B samples through the
+    units' bodies: the round-material expansion, the keystream and the
+    finish, called eagerly (what ``csp_decompose`` runs at L=128 when no
+    unit has a graph)."""
+    from hhe_tpu_torch.ops import transcipher
+
+    mats = tc._expand_round_mats(tc.block_first_rows(nonce, 0))
+    ks = tc._keystream_impl(enc_key.data, mats, tc.block_rcs(nonce, 0), tc._keys())
+    chunk = np.asarray(sym, np.uint64)[:, : transcipher.T]
+    return tc._finish_impl(ks, tc.ctx.to_device(chunk))
 
 
 def helin_weight(stack, w):
@@ -2570,19 +2857,32 @@ def profiled(fn) -> dict:
             "by_family": fams, "top": top}
 
 
-def phase_profile(tc, enc_key, block_ms, tag):
-    """One keystream block of Transcipher `tc`, ``profiled``; the busy share
-    also against the unprofiled ``block_ms``."""
+def phase_profile(tc, enc_key, block_ms, tag, block_graph_ms=None):
+    """One keystream block of Transcipher `tc`, ``profiled``: replayed
+    (``_jit_keystream``, the units' path; CUPTI traces a graph's kernel
+    nodes) and, beside it, its eager body; each busy share also against the
+    unprofiled ``block_graph_ms`` / ``block_ms``.  Where the replay's
+    profile holds no kernel, it says so."""
     from hhe_tpu_torch.ops import pasta
 
     mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
     keys = tc._keys()
-    out = profiled(lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys))
-    out["busy_share_of_profiled_wall"] = out["busy_ms"] / out["profiled_wall_ms"]
-    out["busy_share_of_unprofiled_block_ms"] = out["busy_ms"] / block_ms
-    log(f"profile ({tag}): {({k: v for k, v in out.items() if k != 'top'})}")
-    for e in out["top"]:
-        log(f"  {e['device_ms']:9.2f} ms {e['count']:6d}x  {e['name'][:100]}")
+    out = {}
+    for name, fn, ms in (
+            ("replayed", lambda: tc._jit_keystream(enc_key.data, mats_qp, rcs_pt, keys),
+             block_graph_ms),
+            ("eager", lambda: tc._keystream_impl(enc_key.data, mats_qp, rcs_pt, keys), block_ms)):
+        if ms is None:
+            continue
+        prof = profiled(fn)
+        prof["busy_share_of_profiled_wall"] = prof["busy_ms"] / prof["profiled_wall_ms"]
+        prof["busy_share_of_unprofiled_ms"] = prof["busy_ms"] / ms
+        if prof["kernels"] == 0:
+            prof["note"] = "the profiler saw no kernel of the replayed graph"
+        log(f"profile ({tag}, {name}): {({k: v for k, v in prof.items() if k != 'top'})}")
+        for e in prof["top"]:
+            log(f"  {e['device_ms']:9.2f} ms {e['count']:6d}x  {e['name'][:100]}")
+        out[name] = prof
     return out
 
 
@@ -2778,7 +3078,11 @@ def phase_accuracy_parity():
     return stats, launches, rec.calls
 
 
-def free_device():
+def free_device(dropped=()):
+    """Collect what the phases dropped -- a dropped stack's graph units go
+    with it, their pools with the last graph -- and return the freed
+    memory to the card; fail if a unit of ``dropped`` (weak references,
+    ``unit_refs``) is still alive."""
     import gc
 
     import torch
@@ -2786,6 +3090,20 @@ def free_device():
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    alive = [r().name for r in dropped if r() is not None]
+    if alive:
+        raise AssertionError(f"free_device() left a dropped stack's units {alive} alive")
+
+
+def unit_refs(stack) -> list:
+    """Weak references to `stack`'s graph units: its transcipher's and its
+    1FC evaluation's."""
+    import weakref
+
+    tc = stack.tc
+    units = [tc._jit_expand, tc._jit_keystream, tc._jit_keystream_seeded, tc._jit_finish]
+    units += [u for k, u in vars(stack).items() if k.startswith("_jit_1fc_")]
+    return [weakref.ref(u) for u in units]
 
 
 def main():
@@ -2802,12 +3120,18 @@ def main():
     smi = phase_device()
     phase_build()
     phase_kernels()
+    ShapeRecorder.install()
     launches, calls = {}, {}
     stack, launches["ecg"], calls["ecg"], stats, (d0, x0) = phase_main_path()
     enc_key = stack.tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
-    prof = phase_profile(stack.tc, enc_key, stats["block_ms"], "ECG keystream")
+    prof = phase_profile(stack.tc, enc_key, stats["block_ms"], "ECG keystream",
+                         stats["block_graph_ms"])
+    del enc_key
+    free_device()
+    graph_units = {"ecg": phase_graphs(stack, B)}
+    free_device()
     mod_switch = phase_mod_switch(stack, d0, x0)
-    del enc_key, d0
+    del d0
     free_device()
     parallel, launches["parallel"], calls["parallel"] = phase_parallel(stack)
     free_device()
@@ -2815,8 +3139,12 @@ def main():
     free_device()
     ecg_full, launches["ecg_full"], calls["ecg_full"] = phase_ecg_full(
         stack, args.ecg_full_samples)
+    dropped = unit_refs(stack)
     del stack
-    free_device()
+    free_device(dropped)
+    graph_units["reserved_gib_after_dropping_the_ecg_stack"] = torch.cuda.memory_reserved() / 2**30
+    log(f"the ECG stack dropped with its graphs: "
+        f"{graph_units['reserved_gib_after_dropping_the_ecg_stack']:.3f} GiB reserved")
     fc, launches["1fc"], calls["1fc"] = phase_1fc()
     free_device()
     parties, launches["parties"], calls["parties"] = phase_parties()
@@ -2841,7 +3169,10 @@ def main():
     free_device()
     rows = kernel_rows(launches, calls) + mont_rows(launches, calls) + elem_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "mod_switch": mod_switch,
+    graph_units["mnist_2fc"] = mnist.pop("graph_units")
+    graph_units["parties_csp_eval"] = parties.pop("graph_unit_csp_eval")
+    print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "graphs": graph_units,
+                      "mod_switch": mod_switch,
                       "parallel": parallel, "limb": limb, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,
                       "fmnist_1fc": fmnist, "mnist_2fc": mnist, "he_conv": hcnn,
                       "training": training, "accuracy_parity": parity,

@@ -177,6 +177,7 @@ class Context:
         )  # [kd, k+1]
 
         self._galois_perm_cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._galois_dev_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._ntt_perm_cache: Dict[int, np.ndarray] = {}
         self._build_encoder_map()
         self._eval_consts = None
@@ -469,6 +470,17 @@ class Context:
         sign[j[~lo] - n] = True
         self._galois_perm_cache[g] = (src, sign)
         return src, sign
+
+    def galois_perm_device(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``galois_perm(g)`` on the context's device (int64 source index,
+        bool negate mask), uploaded once per element and kept: a rotation
+        reads them on every call, and a captured graph cannot upload."""
+        hit = self._galois_dev_cache.get(g)
+        if hit is None:
+            src, sign = self.galois_perm(g)
+            hit = self._galois_dev_cache[g] = (torch.as_tensor(src, device=self.device),
+                                               torch.as_tensor(sign, device=self.device))
+        return hit
 
     def galois_elt_from_step(self, step: int) -> int:
         """SEAL convention: step 0 -> column swap (elt 2N-1); else row

@@ -51,7 +51,7 @@ class EvalConsts(NamedTuple):
     # base extension q -> Bsk with m_tilde correction
     mtilde_inv_mont: torch.Tensor  # [k,1] Mont(inv_j * m_tilde mod q_j)
     fbc_q_to_bsk: rns.FBC
-    tilde_mod_mtilde: np.ndarray  # [k] (Q/q_j) mod 2^16 (host)
+    tilde_mod_mtilde: torch.Tensor  # [k,1] (Q/q_j) mod 2^16
     neg_qinv_mtilde: int  # (-Q^-1) mod 2^16
     mtinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(m_tilde^-1 mod b)
     q_mtinv_bsk_mont: torch.Tensor  # [kb+1,1] Mont(Q * m_tilde^-1 mod b)
@@ -103,7 +103,7 @@ def _build_eval_consts(ctx: Context) -> EvalConsts:
         bqi=ctx.tb_bsk.qinv_neg,
         mtilde_inv_mont=_mont_col([inv * mt for inv in ctx.base_q.inv], q_mods, dev),
         fbc_q_to_bsk=rns.build_fbc(ctx.base_q, bsk_mods, dev),
-        tilde_mod_mtilde=np.array([t % mt for t in ctx.base_q.tilde], np.uint32),
+        tilde_mod_mtilde=_col([t % mt for t in ctx.base_q.tilde], dev),
         neg_qinv_mtilde=(-pow(Q, -1, mt)) % mt,
         mtinv_bsk_mont=_mont_col([pow(mt, -1, b) for b in bsk_mods], bsk_mods, dev),
         q_mtinv_bsk_mont=_mont_col([Q * pow(mt, -1, b) for b in bsk_mods], bsk_mods, dev),
@@ -267,11 +267,10 @@ def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey) -> Cipher
     """x(X) -> x(X^g) on a size-2 ciphertext + key-switch back to s."""
     if ct.size != 2:
         raise ValueError("relinearize before rotating")
-    src, sign = ctx.galois_perm(g)
+    src, sign = ctx.galois_perm_device(g)
     q = ctx.tb_q.q
-    dev = ct.data.device
-    perm = ct.data[..., torch.as_tensor(src, device=dev)]
-    perm = torch.where(torch.as_tensor(sign, device=dev), neg_mod(perm, q), perm)
+    perm = ct.data[..., src]
+    perm = torch.where(sign, neg_mod(perm, q), perm)
     d0, d1 = keyswitch(ctx, perm[1], gk)
     return Ciphertext(torch.stack([add_mod(perm[0], d0, q), d1]))
 

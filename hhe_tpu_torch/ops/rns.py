@@ -130,14 +130,14 @@ def fbc_apply(x: torch.Tensor, f: FBC) -> torch.Tensor:
     return fbc_from_digits(fbc_digits(x, f), f)
 
 
-def fbc_digits_to_pow2(tmp: torch.Tensor, tilde_mod: np.ndarray, bits: int) -> torch.Tensor:
-    """FBC digits -> a power-of-two modulus 2^bits (bits <= 16).
+def fbc_digits_to_pow2(tmp: torch.Tensor, tilde_mod: torch.Tensor, bits: int) -> torch.Tensor:
+    """FBC digits -> a power-of-two modulus 2^bits (bits <= 16); tilde_mod
+    is the [k, 1] int64 column (A/a_j) mod 2^bits on tmp's device.
 
     Each term is below 2^32 and the int64 sum of k terms is exact, so masking
     the sum equals the JAX package's wrapping u32 sum modulo 2^bits."""
     mask = (1 << bits) - 1
-    tm = torch.as_tensor(np.asarray(tilde_mod, np.int64), device=tmp.device)[:, None]
-    t = (tmp.to(torch.int64) & mask) * tm
+    t = (tmp.to(torch.int64) & mask) * tilde_mod
     return (t.sum(dim=-2) & mask).to(tmp.dtype)
 
 

@@ -21,6 +21,13 @@ A Transcipher on a ``parallel.limb_shard.LimbView`` (``on_limbs``) holds
 the rank's rows of the BSGS keys and expands the round material only over
 the rank's moduli; its keystream takes a whole or a limb-split encrypted
 key and returns the rank's limbs.
+
+The four units the JAX package jits -- ``_jit_expand``, ``_jit_keystream``,
+``_jit_keystream_seeded`` and ``_jit_finish`` -- are, on a whole Context,
+``utils.graphs`` callables: on the card each is captured once per layout as
+a CUDA graph and replayed as one launch; on the CPU each runs its body.  On
+a limb view they are the bodies themselves (graphs that hold the view's
+collectives are not made).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..utils import graphs
 from . import bfv_eval, ntt, pasta, rns
 from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
 from .modular import add_mod, mont_mac, mont_mul, neg_mod, to_mont_host
@@ -108,6 +116,21 @@ class Transcipher:
         self._ks_cache_max = 64
         self._limb_tcs: Dict[int, tuple] = {}  # id(mesh) -> (mesh, Transcipher)
         self._build_expand_consts()
+        base = (self.rk, self.gk_neg1, self.gk_t, self.gk_cols)
+        if self.use_bsgs:
+            base += ((self.baby_k, self.baby_srcs),
+                     (self.giant_k, self.giant_nsrc, self.giant_csrc, self.giant_csign))
+        self._key_bundle = base  # one object: the graphs read the keys by its identity
+        if isinstance(ctx, Context):
+            def unit(fn, name):
+                return graphs.jit(fn, name, ctx)
+        else:
+            def unit(fn, name):
+                return fn
+        self._jit_keystream = unit(self._keystream_impl, "keystream")
+        self._jit_keystream_seeded = unit(self._keystream_seeded_impl, "keystream_seeded")
+        self._jit_expand = unit(self._expand_round_mats, "expand")
+        self._jit_finish = unit(self._finish_impl, "finish")
 
     def _cache_put(self, cache, maxsize, key, value):
         cache[key] = value
@@ -352,18 +375,10 @@ class Transcipher:
     # ------------------------------------------------------------------
 
     def _keys(self):
-        base = (self.rk, self.gk_neg1, self.gk_t, self.gk_cols)
-        if self.use_bsgs:
-            return base + (
-                (self.baby_k, self.baby_srcs),
-                (
-                    self.giant_k,
-                    self.giant_nsrc,
-                    self.giant_csrc,
-                    self.giant_csign,
-                ),
-            )
-        return base
+        """(rk, gk_neg1, gk_t, gk_cols[, (baby_k, baby_srcs), (giant_k,
+        giant_nsrc, giant_csrc, giant_csign)]): the same tuple on every
+        call."""
+        return self._key_bundle
 
     def round_mats(self, mats, r: int):
         """Round r of a round-material bundle: (q part, q ∪ P) for BSGS,
@@ -534,7 +549,9 @@ class Transcipher:
         ck = (id(enc_key.data), nonce, b)
         if ck not in self._ks_cache:
             mats, rcs_pt = self.device_block_plaintexts(nonce, b, expand_on_device)
-            out = self._keystream_impl(enc_key.data, mats, rcs_pt, self._keys())
+            if isinstance(mats, tuple):  # the host's BSGS (q part, q ∪ P): a view of the latter
+                mats = mats[1]
+            out = self._jit_keystream(enc_key.data, mats, rcs_pt, self._keys())
             self._cache_put(
                 self._ks_cache, self._ks_cache_max, ck, (enc_key.data, Ciphertext(out))
             )
@@ -548,7 +565,7 @@ class Transcipher:
             return self.block_plaintexts(nonce, b)
         ck = ("dev", nonce, b)
         if ck not in self._pt_cache:
-            mats_qp = self._expand_round_mats(self.block_first_rows(nonce, b))
+            mats_qp = self._jit_expand(self.block_first_rows(nonce, b))
             self._cache_put(
                 self._pt_cache, self._pt_cache_max, ck, (mats_qp, self.block_rcs(nonce, b))
             )
@@ -564,7 +581,7 @@ class Transcipher:
         if len(missing) >= 2:
             keys = self._keys()
             for b in missing:
-                out = self._keystream_seeded_impl(
+                out = self._jit_keystream_seeded(
                     enc_key.data, self.block_first_rows(nonce, b),
                     self.block_rcs(nonce, b), keys,
                 )
@@ -623,7 +640,7 @@ class Transcipher:
         out = []
         for b in range(nblocks):
             chunk = self.ctx.to_device(sym2[:, b * T : min((b + 1) * T, L)])
-            res = tc._finish_impl(kss[b].data, chunk)  # [2, B, k, N]
+            res = tc._jit_finish(kss[b].data, chunk)  # [2, B, k, N]
             if mesh is not None:
                 res = hmesh.gather_batch(tc.ctx.gather(res), mesh)[:, :B]
             out.append(Ciphertext(res if batched else res[:, 0]))

@@ -139,6 +139,9 @@ class LimbView:
     def galois_perm(self, g: int):
         return self.whole_ctx.galois_perm(g)
 
+    def galois_perm_device(self, g: int):
+        return self.whole_ctx.galois_perm_device(g)
+
     def galois_elt_from_step(self, step: int) -> int:
         return self.whole_ctx.galois_elt_from_step(step)
 

@@ -33,7 +33,7 @@ import numpy as np
 
 from ..ops import bfv, bfv_eval, helin, transcipher
 from ..ops.bfv import BFVParams, Context
-from ..utils import metrics, serial
+from ..utils import graphs, metrics, serial
 from ..utils.config import RunConfig
 from . import rpc
 from .gen import hhe_pb2 as pb
@@ -53,6 +53,10 @@ class AnalystState:
     # evaluate paths (the reference hard-codes 300 at CSPRPC.cpp:196 — a
     # deficiency deliberately not replicated)
     input_len: Optional[int] = None
+    # the per-ciphertext evaluation's graphs (CSP._jit_eval), which read rk,
+    # gks and the weight ciphertext by address: dropped whenever those are
+    # replaced
+    jit_eval: Optional[graphs.Jit] = dataclasses.field(default=None, repr=False)
 
 
 def check_name(what: str, value: str) -> str:
@@ -114,6 +118,7 @@ class CSP:
             gks.update(serial.load_galois_keys(msg.csp_gk.data, dev))
             st.gks = gks
             st.tc = transcipher.Transcipher(self.ctx, st.rk, gks)
+            st.jit_eval = None
             self.uuid_to_id[msg.analystUUID] = analyst_id
 
     def add_ml_model(self, analyst_id: str, msg: pb.MLModelMsg):
@@ -122,6 +127,7 @@ class CSP:
             st.weight_cts = [
                 serial.load_ciphertext(w.data, self.ctx.device) for w in msg.weights
             ]
+            st.jit_eval = None
 
     def add_encrypted_keys(self, analyst_id: str, msg: pb.EncSymmetricKeysMsg):
         st = self.state(analyst_id)
@@ -188,13 +194,27 @@ class CSP:
 
     def _eval_one(self, st: AnalystState, ct: bfv.Ciphertext) -> bfv.Ciphertext:
         """One ciphertext's evaluation: multiply by the weight ciphertext,
-        relinearize, log-depth vec-sum (the JAX package jits this per
-        analyst; here it runs eagerly)."""
-        ctx = self.ctx
-        prod = bfv_eval.relinearize(
-            ctx, bfv_eval.multiply(ctx, ct, st.weight_cts[0]), st.rk
-        )
-        return helin.encrypted_vec_sum_log(ctx, prod, st.gks)
+        relinearize, log-depth vec-sum, through the analyst's unit."""
+        return bfv.Ciphertext(self._jit_eval(st)(ct.data, st.weight_cts[0], st.rk, st.gks))
+
+    def _jit_eval(self, st: AnalystState) -> graphs.Jit:
+        """The per-ciphertext evaluation as one ``utils.graphs`` unit per
+        analyst (the JAX package's ``_jit_eval``): on the card, captured
+        once per layout and replayed.  The ciphertext is its input; the
+        weight ciphertext and the keys are constants read by address, so
+        the unit goes when ``add_public_keys`` or ``add_ml_model`` replaces
+        them."""
+        if st.jit_eval is None:
+            ctx = self.ctx
+
+            def fn(dd, wct, rk, gks):
+                prod = bfv_eval.relinearize(
+                    ctx, bfv_eval.multiply(ctx, bfv.Ciphertext(dd), wct), rk
+                )
+                return helin.encrypted_vec_sum_log(ctx, prod, gks).data
+
+            st.jit_eval = graphs.jit(fn, "csp_eval", ctx)
+        return st.jit_eval
 
 
 class CSPServer:

@@ -35,6 +35,7 @@ on any leading shape.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Dict, List, Optional, Tuple
@@ -46,7 +47,7 @@ from ..models import loaders, pocketnn
 from ..ops import bfv, bfv_eval, helin, pasta, transcipher
 from ..ops.bfv import BFVParams, Ciphertext, Context
 from ..ops.modular import add_mod, mont_mul, neg_mod, tree_add_mod
-from ..utils import checks, metrics
+from ..utils import checks, graphs, metrics
 from ..utils.config import Config, RunConfig
 
 
@@ -165,16 +166,34 @@ def csp_eval_1fc(
     """Encrypted FC: data * weight (ct x ct), relinearize, optional
     log-depth rotate-reduce sum.
 
-    With ``mesh`` it runs on the rank's limbs (``Transcipher.on_limbs``'s
-    view): ``data_ct`` is the rank's block (``mesh.shard_ciphertext_batch``),
-    ``weight_ct`` whole or the rank's limbs, and so is the result, which
-    ``gather_limbs`` and ``gather_batch`` make whole; the analyst decrypts
-    only whole ciphertexts."""
-    ctx = stack.ctx if mesh is None else stack.tc.on_limbs(mesh).ctx
-    prod = bfv_eval.relinearize(ctx, bfv_eval.multiply(ctx, data_ct, weight_ct), stack.rk)
+    Without ``mesh`` it is one ``utils.graphs`` unit per stack and
+    ``do_sum`` (the JAX package's ``_jit_1fc_{do_sum}``, kept on the stack
+    as the JAX package keeps its jit): on the card, captured once per
+    layout and replayed; the data and weight ciphertexts are its inputs,
+    the keys its constants.
+
+    With ``mesh`` it runs eagerly on the rank's limbs
+    (``Transcipher.on_limbs``'s view): ``data_ct`` is the rank's block
+    (``mesh.shard_ciphertext_batch``), ``weight_ct`` whole or the rank's
+    limbs, and so is the result, which ``gather_limbs`` and ``gather_batch``
+    make whole; the analyst decrypts only whole ciphertexts."""
+    if mesh is None:
+        key = f"_jit_1fc_{do_sum}"
+        unit = stack.__dict__.get(key)
+        if unit is None:
+            unit = stack.__dict__[key] = graphs.jit(
+                functools.partial(_fc_body, stack.ctx, do_sum), "eval_1fc", stack.ctx)
+        return Ciphertext(unit(data_ct.data, weight_ct.data, stack.rk, stack.gks))
+    ctx = stack.tc.on_limbs(mesh).ctx
+    return Ciphertext(_fc_body(ctx, do_sum, data_ct.data, weight_ct.data, stack.rk, stack.gks))
+
+
+def _fc_body(ctx, do_sum: bool, dd: torch.Tensor, wd: torch.Tensor, rk, gks) -> torch.Tensor:
+    """``csp_eval_1fc``'s evaluation on ciphertext data [2, (B,) k, N]."""
+    prod = bfv_eval.relinearize(ctx, bfv_eval.multiply(ctx, Ciphertext(dd), Ciphertext(wd)), rk)
     if do_sum:
-        prod = helin.encrypted_vec_sum_log(ctx, prod, stack.gks)
-    return prod
+        prod = helin.encrypted_vec_sum_log(ctx, prod, gks)
+    return prod.data
 
 
 # ---------------------------------------------------------------------------
