@@ -23,7 +23,11 @@ Phases (any failure propagates and the exit code is nonzero):
    aligned and not (``check_mont_sites``); K5 (each op) and K6 against
    theirs at their sites' shapes, broadcast patterns and dtype mixes, on
    operands holding 0, q - 1 and (reduce) values near 2^31, aligned and not
-   (``check_elem_sites``);
+   (``check_elem_sites``); K5's gather (signed and not, one index row and
+   one a row), sum (of gathered, signed terms) and centred lift, and K6
+   with addends (gathered, strided, one row's, into a caller's slice), at
+   their sites' layouts on one ciphertext, a batch and a limb view's rows
+   (``fused_sites``); every K5 mode and K6 form must launch;
 3. ECG path (the main path): ``build_stack`` at the production BFV
    parameters (N=16384, 13 x 30-bit limbs, device keygen), then
    ``hhe_ecg_inference`` on B=64 samples twice: the first run calls each
@@ -42,7 +46,8 @@ Phases (any failure propagates and the exit code is nonzero):
    expansion replayed and through its body, the FC product through the
    entry point and its body, the batched decrypt; and one keystream block
    under ``torch.profiler`` (device busy time by kernel), replayed and
-   through its body.  The graphs phase: each unit of the stack captured
+   through its body: a PyTorch gather, index, ``where`` or stack kernel
+   left in the replayed block fails the run (``PYTORCH_PASSES``).  The graphs phase: each unit of the stack captured
    afresh in a pool of its own, its replay equal to its body on two
    inputs and the first replay's result unchanged by the second (the
    outputs are clones); capture, replay and eager ms, the kernels inside
@@ -144,13 +149,17 @@ Phases (any failure propagates and the exit code is nonzero):
    ``device_ms_cold``), each beside its bound and (K3, K4) the plain
    version's ms; each K4 layout with the form it took and, for a fan-out
    form, the general form's cold device time on the same copies; each K5
-   reduction beside one ``torch.remainder`` call (the library time);
+   reduction beside one ``torch.remainder`` call and each unsigned gather
+   beside one ``torch.index_select`` / ``torch.gather`` call (the library
+   time, per call and on the device alone), the index and mask bytes in
+   K5's and K6's bounds;
 8. one JSON line of every phase's numbers, the card's line, one JSON line
    with every kernel's launches per path, error, time, plain time and bound,
    per shape and summed per path, then the device line last.
 
 Each path's launch counts are set to 0 just before it and read just after;
-every path of phases 3-6 must launch K1-K6 (the top passes where N > 16384).
+every path of phases 3-6 must launch K1-K6 (the top passes where N > 16384),
+K5's gather, and K6 with addends only (``check_fused_modes``).
 A unit's replay adds to them (and to ``ShapeRecorder``'s calls per layout)
 what its capture counted, so they are an eager run's counts; each path of
 ``PATH_UNITS`` must replay its units (``graphs.REPLAYS``).
@@ -312,7 +321,20 @@ def launch_counts() -> dict:
 
     return {**ntt_kernels.LAUNCHES, **mod_kernels.LAUNCHES,
             **{f"mont_mac_{form}": n for form, n in mod_kernels.FORM_LAUNCHES.items()},
-            **{f"mod_elem_{op}": n for op, n in mod_kernels.OP_LAUNCHES.items()}}
+            **{f"mod_elem_{op}": n for op, n in mod_kernels.OP_LAUNCHES.items()},
+            **{f"mod_down_{form}": n for form, n in mod_kernels.DOWN_LAUNCHES.items()}}
+
+
+def check_fused_modes(launches: dict):
+    """Every path rotates and key-switches: each must have read a galois
+    permutation through K5's gather and added after its key-switches in K6
+    (a mod-down with addends), and none may have launched K6 bare."""
+    bad = {path: {k: v for k, v in per.items() if k.startswith(("mod_elem_gather", "mod_down_"))}
+           for path, per in launches.items()
+           if not per.get("mod_elem_gather") or per.get("mod_down_bare")
+           or not per.get("mod_down_one_addend", 0) + per.get("mod_down_two_addends", 0)}
+    if bad:
+        raise AssertionError(f"paths that missed K5's gather or K6's addends: {bad}")
 
 
 def phase_device():
@@ -374,7 +396,8 @@ def phase_build():
             log(f"  ptxas: {name}: {info['registers']}")
         spills += [name for name, info in report.items() if info["spill_bytes"]]
         if mod is mod_kernels and mod.BUILD_LOG.get("compiler_output") is not None:
-            for kernel in ("mont_kernel", "mont_fan_kernel", "mod_elem_kernel", "mod_down_kernel"):
+            for kernel in ("mont_kernel", "mont_fan_kernel", "mod_elem_kernel", "mod_fused_kernel",
+                           "mod_down_kernel"):
                 if not any(kernel in name for name in report):
                     raise AssertionError(f"ptxas reported no {kernel} instance")
     if spills:
@@ -492,7 +515,7 @@ def check_mont_sites():
     ciphertext, a ``keyswitch`` digit chunk against a row slice of the
     key), the BSGS key contraction (digits as a transposed view, one key
     and the pair), the giantsteps' contraction, the BSGS plaintext sums (one
-    over a [:, 1:] view, against H0/H1 as ``_take_rows`` leaves them) and
+    over a [:, 1:] view, against H0/H1 as a transposed view) and
     the base conversions (``fbc_from_digits`` q -> Bsk, B -> q ∪ {m_sk});
     K3, eager and lazy, at ``mod_down``'s and ``multiply_plain``'s shapes on
     lazy inputs in [0, 2q) and with a Python-int b (``from_mont``); K3 and
@@ -639,12 +662,14 @@ def elem_call(op, a, b, q):
     return {"add": modular.add_mod, "sub": modular.sub_mod}[op](a, b, q)
 
 
-def down_plain(c, *consts):
+def down_plain(c, *consts, adds=()):
     """K6's plain version, ``bfv_eval.mod_down_plain``, on the wrapper's
-    constants (q, qinv_neg, P mod q, Mont(P^-1), p_half), in slices where
-    large."""
+    constants (q, qinv_neg, P mod q, Mont(P^-1), p_half) and addends, in
+    slices where large and without addends."""
     from hhe_tpu_torch.ops import bfv_eval
 
+    if adds:
+        return bfv_eval.mod_down_plain(c, *consts, adds=adds)
     return sliced(lambda cc: bfv_eval.mod_down_plain(cc, *consts), [c],
                   tuple(c.shape[:-2]) + (1, c.shape[-1]))
 
@@ -747,12 +772,104 @@ def check_elem_sites():
             if not ok:
                 raise AssertionError(f"mod_down differs from its plain version at {site}, n={n}")
             del got, want
+        for site, (mode, kern, plain) in fused_sites(ctx, r, batch, gen).items():
+            got = kern()
+            want = plain()
+            ok = torch.equal(got, want)
+            log(f"kernels {mode} n={n} k={k} {site} {list(got.shape)} {got.dtype}: "
+                f"{'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"{mode} differs from its plain version at {site}, n={n}")
+            del got, want
         del sites, downs, poly, y, tree, c_pair, ctx
     counts = {k: mod_kernels.LAUNCHES[k] for k in ("mod_elem", "mod_down")}
-    log(f"kernels: launches {counts}, K5 by op {mod_kernels.OP_LAUNCHES}")
-    if min(counts.values()) == 0 or min(mod_kernels.OP_LAUNCHES.values()) == 0:
-        raise AssertionError(f"K5 (an op) or K6 did not launch in the kernel phase: {counts} "
-                             f"{mod_kernels.OP_LAUNCHES}")
+    log(f"kernels: launches {counts}, K5 by mode {mod_kernels.OP_LAUNCHES}, "
+        f"K6 by addends {mod_kernels.DOWN_LAUNCHES}")
+    if min(counts.values()) == 0 or min(mod_kernels.OP_LAUNCHES.values()) == 0 or \
+            min(mod_kernels.DOWN_LAUNCHES.values()) == 0:
+        raise AssertionError(f"K5 (a mode) or K6 (a form) did not launch in the kernel phase: {counts} "
+                             f"{mod_kernels.OP_LAUNCHES} {mod_kernels.DOWN_LAUNCHES}")
+
+
+def fused_sites(ctx, r, batch, gen):
+    """Phase 2's checks of K5's gather, sum and centred lift and of K6 with
+    addends, at each site's layout on `ctx` (r(shape, q) makes residues
+    below q): {name: (mode, kernel call, plain call)}.  Gathers: a galois
+    permutation of one ciphertext's c1 and of a batch's (int32 index and
+    sign mask of ``galois_perm_device``), the BSGS rot_f0 fan-out and the
+    babystep results' permutation (per-row index tables); sums: the
+    giantsteps' signed gathered sum over q and the contraction results'
+    over q and P; lifts: BEHZ's alpha mod m_sk to q and r mod m_tilde to
+    Bsk; K6: apply_galois (a gathered, signed c0 for row 0, and a rotation's
+    running sum), relinearize's c0 / c1, the BSGS's strided inner_g rows
+    and its one-row p0, into a caller's slice; and a limb view's rows (limbs
+    4..7 of the constants and of every operand)."""
+    import torch
+
+    from hhe_tpu_torch.ops import bfv_eval, mod_kernels, modular, rns, transcipher
+
+    n, k = ctx.n, ctx.k
+    ec = bfv_eval.eval_consts(ctx)
+    q, qp, bq = ctx.tb_q.q, ctx.tb_qp.q, ctx.tb_bsk.q
+    n1, n2 = transcipher.BSGS_N1, transcipher.BSGS_N2
+    src, sign = ctx.galois_perm_device(ctx.galois_elt_from_step(-1))
+    srcs = torch.stack([ctx.galois_perm_device(ctx.galois_elt_from_step(-j))[0] for j in range(n1)])
+    signs = torch.stack([ctx.galois_perm_device(ctx.galois_elt_from_step(-j))[1] for j in range(n2)])
+    rot_idx, h_idx = srcs[:, None, :], srcs[None, 1:, None, :]
+    csrc, csign, nsrc = srcs[1:n2, None, :], signs[1:, None, :], srcs[None, 1:n2, None, :]
+    cols = (ec.q, ec.qi, ec.p_mod_q, ec.p_inv_mont)
+    msk = ec.fbc_b_to_q_msk.c_q[-1:]
+    one, bat = r((2, k, n), q), r((2, batch, k, n), q)
+    f0, inner = r((k, n), q), r((2, n2, k, n), q)
+    b_res, g01 = r((2, n1 - 1, k + 1, n), qp), r((2, n2 - 1, k + 1, n), qp)
+    alpha = r((2, batch, 1, n), msk)
+    rt = torch.randint(0, ctx.m_tilde, (batch, 1, 1, n), generator=gen, device=q.device).int()
+    c_one, c_bat = r((2, k + 1, n), qp), r((2, batch, k + 1, n), qp)
+    c_bsgs, c_g = r((2, n2, k + 1, n), qp), r((2, k + 1, n), qp)
+    p0 = r((k, n), q)
+    view = lambda x: torch.cat([x[..., 4:8, :], x[..., -1:, :]], -2)  # noqa: E731
+    vcols = tuple(x[4:8] for x in cols)
+
+    def down(c, adds, cc=cols, into=False):
+        def kern():
+            out = c.new_empty((*c.shape[:-2], c.shape[-2] - 1, c.shape[-1])) if into else None
+            return mod_kernels.mod_down(c, *cc, ec.p_half, adds=adds, out=out)
+        return ("mod_down+addends", kern, lambda: down_plain(c, *cc, ec.p_half, adds=adds))
+
+    def gather(a, idx, qq=None, sg=None):
+        return ("gather", lambda: modular.gather_mod(a, idx, qq, sg),
+                lambda: modular.gather_mod_plain(a, idx, qq, sg))
+
+    def msum(a, qq, dim, idx=None, sg=None):
+        return ("sum", lambda: modular.sum_mod(a, qq, dim, idx, sg),
+                lambda: modular.sum_mod_plain(a, qq, dim, idx, sg))
+
+    def center(x, m, qq, half):
+        return ("center", lambda: rns.center_lift(x, m, qq, half),
+                lambda: rns.center_lift_plain(x, m, qq, half))
+
+    return {
+        "gather, one ciphertext's c1, signed": gather(one[1], src, q, sign),
+        "gather, a batch's c1, signed": gather(bat[1], src, q, sign),
+        "gather, rot_f0's fan-out": gather(f0[None], rot_idx),
+        "gather, the babystep results": gather(b_res, h_idx),
+        "sum, the giantsteps' signed inner_g": msum(inner[0, 1:], q, 0, csrc, csign),
+        "sum, the giantstep contractions": msum(g01, qp, 1, nsrc),
+        "sum, a plain axis": msum(g01, qp, 1),
+        "center, alpha mod m_sk to q": center(alpha, ec.msk_mod_q, q, ec.msk_half),
+        "center, r mod m_tilde to Bsk": center(rt, ctx.m_tilde, bq, ctx.m_tilde // 2 - 1),
+        "K6, apply_galois (gathered c0, a running sum), one ciphertext":
+            down(c_one, (mod_kernels.Addend(one[:1], src, sign), one)),
+        "K6, apply_galois, a batch": down(c_bat, (mod_kernels.Addend(bat[:1], src, sign),)),
+        "K6, relinearize's c0 / c1 and a sum, a batch": down(c_bat, (bat, bat), into=True),
+        "K6, the BSGS inner_g": down(c_bsgs, (inner,)),
+        "K6, the BSGS output (p0, strided inner_g rows), into a slice":
+            down(c_g, (p0[None], inner[:, 0]), into=True),
+        "K6, a limb view's rows, gathered c0": down(
+            view(c_one), (mod_kernels.Addend(one[:1, 4:8], src, sign), one[:, 4:8]), vcols),
+        "gather, a limb view's rows, signed": gather(one[1, 4:8], src, q[4:8], sign),
+        "K6, unaligned": down(r((2, k + 1, n + 1), qp)[..., 1:], (one,)),
+    }
 
 
 # the moduli columns (q, qinv_neg) first seen with each K3 / K4 layout, so
@@ -768,9 +885,64 @@ def mont_layout(x):
     return tuple(x.shape), tuple(x.stride()), str(x.dtype).split(".")[-1]
 
 
-# the moduli (and K6's constants) first seen with each K5 / K6 layout
+# the moduli, index tables and masks (and K6's constants and addends'
+# tables) first seen with each K5 / K6 layout: phase 7 remakes a layout's
+# streamed operands and keeps these
 ELEM_MODULI = {}
 DOWN_CONSTS = {}
+
+
+def elem_args(wrapper, args):
+    """(mode, {a, b, q, half, idx, sign, dim}) of a call of a K5 wrapper
+    (``mod_kernels.mod_elem`` / ``mod_center`` / ``mod_gather`` /
+    ``mod_sum``) on positional `args`."""
+    e = dict(b=0, half=0, idx=None, sign=None, dim=None)
+    if wrapper == "mod_elem":
+        mode, e["a"], e["b"], e["q"] = args
+    elif wrapper == "mod_center":
+        mode = "center"
+        e["a"], e["b"], e["q"], e["half"] = args
+    elif wrapper == "mod_gather":
+        mode = "gather"
+        a, idx, q, sign = (tuple(args) + (None, None))[:4]
+        e.update(a=a, idx=idx, q=0 if q is None else q, sign=sign)
+    else:
+        mode = "sum"
+        a, q, dim, idx, sign = (tuple(args) + (None, None))[:5]
+        e.update(a=a, q=q, dim=dim, idx=idx, sign=sign)
+    return mode, e
+
+
+def index_layout(x):
+    """An index or mask as phase 7 keys it: None, or its layout (phase 7
+    reuses the first tensor seen: the real permutation)."""
+    return None if x is None else mont_layout(x)
+
+
+def elem_call_mode(mode, e, a, b):
+    """K5 in `mode` on the recorded operands `e`, with a and b remade."""
+    from hhe_tpu_torch.ops import mod_kernels
+
+    if mode == "center":
+        return mod_kernels.mod_center(a, b, e["q"], e["half"])
+    if mode == "gather":
+        return mod_kernels.mod_gather(a, e["idx"], e["q"] if e["sign"] is not None else None, e["sign"])
+    if mode == "sum":
+        return mod_kernels.mod_sum(a, e["q"], e["dim"], e["idx"], e["sign"])
+    return mod_kernels.mod_elem(mode, a, b, e["q"])
+
+
+def elem_plain_mode(mode, e, a, b):
+    """K5's plain version in `mode` (``elem_plain`` for the four ops)."""
+    from hhe_tpu_torch.ops import modular, rns
+
+    if mode == "center":
+        return rns.center_lift_plain(a, b, e["q"], e["half"])
+    if mode == "gather":
+        return modular.gather_mod_plain(a, e["idx"], e["q"], e["sign"])
+    if mode == "sum":
+        return modular.sum_mod_plain(a, e["q"], e["dim"], e["idx"], e["sign"])
+    return elem_plain(mode, a, b, e["q"])
 
 
 class ShapeRecorder:
@@ -805,7 +977,8 @@ class ShapeRecorder:
         graphs.COUNTERS.extend(cls.TAPE.values())
         cls._orig = [(ntt_kernels, name, getattr(ntt_kernels, name)) for name in ("ntt_fwd", "ntt_inv")]
         cls._orig += [(mod_kernels, name, getattr(mod_kernels, name))
-                      for name in ("mont_mul", "mont_mul_lazy", "mont_mac", "mod_elem", "mod_down")]
+                      for name in ("mont_mul", "mont_mul_lazy", "mont_mac", "mod_elem", "mod_center",
+                                   "mod_gather", "mod_sum", "mod_down")]
         capture = graphs.Jit._capture
 
         def recorded_capture(jit, key, args):
@@ -828,24 +1001,28 @@ class ShapeRecorder:
                 def rec(x, tb, _fn=fn, _name=name):
                     tape[_name][(tuple(x.shape), tb.moduli)] += 1
                     return _fn(x, tb)
-            elif name == "mod_elem":
-                def rec(op, a, b, q, _fn=fn):
-                    key = (op, *map(mont_layout, (a, b, q)))
-                    ELEM_MODULI.setdefault(key, q)
+            elif name.startswith("mod_") and name != "mod_down":
+                def rec(*args, _fn=fn, _name=name, **kw):
+                    mode, e = elem_args(_name, args)
+                    key = (mode, *map(mont_layout, (e["a"], e["b"], e["q"])), e["half"],
+                           *map(index_layout, (e["idx"], e["sign"])), e["dim"])
+                    ELEM_MODULI.setdefault(key, {k: v for k, v in e.items() if k not in ("a", "b")})
                     tape["elem"][key] += 1
-                    return _fn(op, a, b, q)
+                    return _fn(*args, **kw)
             elif name == "mod_down":
-                def rec(c, *consts, _fn=fn):
-                    key = (mont_layout(c), mont_layout(consts[0]))
-                    DOWN_CONSTS.setdefault(key, consts)
+                def rec(c, *consts, adds=(), out=None, _fn=fn, _mod=mod):
+                    adds = tuple(_mod.addend(x) for x in adds)
+                    key = (mont_layout(c), mont_layout(consts[0]),
+                           tuple((mont_layout(x.x), *map(index_layout, (x.idx, x.sign))) for x in adds))
+                    DOWN_CONSTS.setdefault(key, (consts, tuple(x._replace(x=None) for x in adds)))
                     tape["down"][key] += 1
-                    return _fn(c, *consts)
+                    return _fn(c, *consts, adds=adds, out=out)
             else:
-                def rec(a, b, q, qi, *dim, _fn=fn, _name=name):
+                def rec(a, b, q, qi, *dim, _fn=fn, _name=name, **kw):
                     key = (_name, dim[0] if dim else None, *map(mont_layout, (a, b, q, qi)))
                     MONT_MODULI.setdefault(key, (q, qi))
                     tape["mont"][key] += 1
-                    return _fn(a, b, q, qi, *dim)
+                    return _fn(a, b, q, qi, *dim, **kw)
             setattr(mod, name, rec)
 
     @classmethod
@@ -1355,70 +1532,103 @@ def remade(lay, bound, gen):
 
 def elem_entry(kind, key, calls, gen):
     """Phase 7 for one K5 (`kind` "mod_elem") or K6 ("mod_down") layout a
-    path gave it: its operands remade (random values below the smallest
-    modulus, below 2^31 for a reduction's input, the recorded moduli and
-    constants), the kernel against the plain version (``torch.equal``),
-    timed as ``timings`` does (the ``_cold`` keys cycle through copies of
-    the streamed operands), the plain version's ms, the bound (each
-    operand's distinct words read once and the output written once at the
-    HBM rate) and, for a reduction, ``library_ms``: one ``torch.remainder``
-    call on the same operands (q in a's dtype), timed as ``ms`` is, where it
-    equals the kernel's output (three subtracts are x mod q for x < 4q);
-    else None, as for add, sub, neg and K6, which no one PyTorch call
-    computes.  Returns (entry, max abs error)."""
+    path gave it: its streamed operands remade (random values below the
+    smallest modulus, below 2^31 for a reduction's or a lift's input; the
+    recorded moduli, constants, index tables and masks), the kernel against
+    the plain version (``torch.equal``), timed as ``timings`` does (the
+    ``_cold`` keys cycle through copies of the streamed operands), the plain
+    version's ms, the bound (each operand's distinct words read once, the
+    index and mask bytes included, and the output written once at the HBM
+    rate) and the library call where one PyTorch call computes the same
+    function -- ``torch.remainder`` for a reduction (three subtracts are x
+    mod q for x < 4q), ``torch.index_select`` for an unsigned gather with
+    one index row (``torch.gather`` on an int64 copy of the index, made
+    beforehand, with several) -- timed as ``ms`` is (``library_ms``) and on
+    the device alone (``library_device_ms``), where it equals the kernel's
+    output; else None (add, sub, neg, a signed gather, a sum, a lift, K6).
+    Returns (entry, max abs error)."""
     import torch
 
     from hhe_tpu_torch.ops import mod_kernels
 
+    def lay(x):
+        return x if isinstance(x, int) else [list(x[0]), x[2]]
+
     if kind == "mod_elem":
-        op, la, lb, _ = key
-        q = ELEM_MODULI[key]
-        qmin = int(q.min()) if isinstance(q, torch.Tensor) else int(q)
-        top = 1 << 31 if op == "reduce" else qmin
+        mode, la, lb, _, half, lidx, lsign, dim = key
+        e = ELEM_MODULI[key]
+        q = e["q"]
+        # an unsigned gather reads no modulus (q is 0): any word below 2^31
+        qmin = (int(q.min()) if isinstance(q, torch.Tensor) else int(q)) or 1 << 31
+        top = 1 << 31 if mode in ("reduce", "center") else qmin
+        bmax = qmin
 
         def make():
-            return remade(la, top, gen), remade(lb, qmin, gen)
+            return remade(la, top, gen), remade(lb, bmax, gen)
 
         def kern(x, y):
-            return mod_kernels.mod_elem(op, x, y, q)
+            return elem_call_mode(mode, e, x, y)
 
         def plain(x, y):
-            return elem_plain(op, x, y, q)
+            return elem_plain_mode(mode, e, x, y)
 
         library = None
-        if op == "reduce":
+        if mode == "reduce":
             def library(x, _):
                 return torch.remainder(x, q.to(x.dtype) if isinstance(q, torch.Tensor) else q)
+        elif mode == "gather" and e["sign"] is None:
+            idx = e["idx"]
+            if idx.dim() == 1:
+                def library(x, _):
+                    return torch.index_select(x, -1, idx)
+            else:
+                full = torch.broadcast_shapes(torch.Size(la[0]), idx.shape)
+                idx64 = idx.long().expand(full)
 
-        desc = {"op": op, "a": [list(la[0]), la[2]], "b": lb if isinstance(lb, int) else [list(lb[0]), lb[2]]}
-        reads = lambda x, y: words_bytes(x) + words_bytes(y) + words_bytes(q)  # noqa: E731
+                def library(x, _):
+                    return torch.gather(x.expand(full), -1, idx64)
+
+        desc = {"op": mode, "a": lay(la), "b": lay(lb),
+                "idx": None if lidx is None else list(lidx[0]), "signed": lsign is not None, "dim": dim}
+        extra = words_bytes(q) + words_bytes(e["idx"]) + words_bytes(e["sign"])
+        reads = lambda x, y: words_bytes(x) + words_bytes(y) + extra  # noqa: E731
     else:
-        lc, _ = key
-        consts = DOWN_CONSTS[key]
+        lc, _, ladds = key
+        consts, adds = DOWN_CONSTS[key]
         qmin = int(consts[0].min())
 
         def make():
-            return remade(lc, qmin, gen), 0
+            xs = tuple(remade(la, qmin, gen) for la, _, _ in ladds)
+            return remade(lc, qmin, gen), xs
 
-        def kern(x, _):
-            return mod_kernels.mod_down(x, *consts)
+        def with_x(xs):
+            return tuple(a._replace(x=x) for a, x in zip(adds, xs))
 
-        def plain(x, _):
-            return down_plain(x, *consts)
+        def kern(x, xs):
+            return mod_kernels.mod_down(x, *consts, adds=with_x(xs))
+
+        def plain(x, xs):
+            return down_plain(x, *consts, adds=with_x(xs))
 
         library = None
-        desc = {"op": None, "a": [list(lc[0]), lc[2]], "b": None}
-        reads = lambda x, y: words_bytes(x) + sum(words_bytes(c) for c in consts[:4])  # noqa: E731
+        desc = {"op": f"{len(adds)} addends" if adds else None, "a": lay(lc),
+                "b": [lay(la) for la, _, _ in ladds] or None,
+                "idx": [None if li is None else list(li[0]) for _, li, _ in ladds] or None,
+                "signed": any(ls is not None for _, _, ls in ladds), "dim": None}
+        extra = sum(words_bytes(c) for c in consts[:4]) + sum(
+            words_bytes(a.idx) + words_bytes(a.sign) for a in adds)
+        reads = lambda x, xs: words_bytes(x) + sum(map(words_bytes, xs)) + extra  # noqa: E731
     a, b = make()
     got, want = kern(a, b), plain(a, b)
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
         raise AssertionError(f"{kind} differs from its plain version at {key}")
-    library_ms = None
+    library_ms = library_device_ms = None
     if library is not None and torch.equal(library(a, b), got):
         library_ms = cuda_ms(lambda: library(a, b), 20)
+        library_device_ms = graph_ms(lambda: library(a, b))
     elif library is not None:
-        log(f"  torch.remainder differs from {kind} at {key}: no library time")
+        log(f"  the library call differs from {kind} at {key}: no library time")
     nbytes = reads(a, b) + got.numel() * got.element_size()
     out = list(got.shape)
     del got, want
@@ -1429,7 +1639,8 @@ def elem_entry(kind, key, calls, gen):
     cold = rotating([lambda x=x, y=y: kern(x, y) for x, y in pairs])
     entry = {"kernel": kind, **desc, "out": list(out), "calls": calls, "bound_ms": b_ms,
              "bound_by": "bytes", **timings(hot, cold, b_ms),
-             "plain_ms": cuda_ms(lambda: plain(a, b), 2), "library_ms": library_ms}
+             "plain_ms": cuda_ms(lambda: plain(a, b), 2), "library_ms": library_ms,
+             "library_device_ms": library_device_ms}
     return entry, err
 
 
@@ -1441,6 +1652,8 @@ def elem_rows(launches, calls):
     the most bound time (calls x bound), ``paths`` summing calls x time
     over the checked layouts of each path."""
     import torch
+
+    from hhe_tpu_torch.ops import mod_kernels
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     checked, per = {}, {name: [] for name, _ in ELEM_KERNELS}
@@ -1456,10 +1669,12 @@ def elem_rows(launches, calls):
                 e = dict(e, path=path, calls=cnt)
                 per[kind].append(e)
                 errs[kind] = max(errs[kind], err)
-                log(f"  {path} {kind}{' ' + e['op'] if e['op'] else ''} a={e['a']} b={e['b']} -> "
+                log(f"  {path} {kind}{' ' + e['op'] if e['op'] else ''} a={e['a']} b={e['b']} "
+                    f"idx={e['idx']}{' signed' if e['signed'] else ''} dim={e['dim']} -> "
                     f"{e['out']} x{cnt}: {e['ms']:.4f} ms a call ({e['ms_cold']:.4f} cold), "
                     f"{e['device_ms']:.4f} on the device ({e['device_ms_cold']:.4f} cold), plain "
-                    f"{e['plain_ms']:.3f}, library {e['library_ms']}, bound {e['bound_ms']:.4f} (bytes), "
+                    f"{e['plain_ms']:.3f}, library {e['library_ms']} ({e['library_device_ms']} on the "
+                    f"device), bound {e['bound_ms']:.4f} (bytes), "
                     f"{e['device_share_of_bound_cold']:.0%} on the device, cold")
     rows = []
     for name, replaces in ELEM_KERNELS:
@@ -1486,13 +1701,15 @@ def elem_rows(launches, calls):
             # library_ms: torch.remainder where the headline is a reduction; no one
             # PyTorch call computes a modular add, sub or neg or K6's divide-and-round
             **{key: head[key] for key in ("ms", "device_ms", "ms_cold", "device_ms_cold", "plain_ms",
-                                          "library_ms", "bound_ms", "bound_by", "op", "a", "b", "out")},
+                                          "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                                          "op", "a", "b", "out")},
             "shape_path": "ecg",
             "calls_at_shape": head["calls"],
             "paths": paths,
             "shapes_checked": len(shapes),
-            "shapes": [{key: e[key] for key in ("path", "op", "a", "b", "out", "calls", "ms",
-                                                "device_ms_cold", "plain_ms", "library_ms", "bound_ms")}
+            "shapes": [{key: e[key] for key in ("path", "op", "a", "b", "idx", "signed", "dim", "out",
+                                                "calls", "ms", "device_ms", "device_ms_cold", "plain_ms",
+                                                "library_ms", "library_device_ms", "bound_ms")}
                        for e in shapes],
             "verdict": "equal",
             "main_path_ms": main["ms"],
@@ -1502,11 +1719,16 @@ def elem_rows(launches, calls):
             "main_path_plain_ms": main["plain_ms"],
             "main_path_device_share_of_bound_cold": main["device_share_of_bound_cold"],
         }
-        if name == "mod_elem":  # K5's launches by op on each path
+        if name == "mod_elem":  # K5's launches by mode on each path
             row["launches_by_op"] = {
-                path: {op: per_path.get(f"mod_elem_{op}", 0) for op in ("add", "sub", "neg", "reduce")}
+                path: {op: per_path.get(f"mod_elem_{op}", 0) for op in mod_kernels.ELEM_OPS}
                 for path, per_path in launches.items()}
             log(f"mod_elem launches by op: {row['launches_by_op']}")
+        else:  # K6's launches by the addends they took on each path
+            row["launches_by_addends"] = {
+                path: {form: per_path.get(f"mod_down_{form}", 0) for form in mod_kernels.DOWN_FORMS}
+                for path, per_path in launches.items()}
+            log(f"mod_down launches by addends: {row['launches_by_addends']}")
         rows.append(row)
         log(f"{name} at a={head['a']} b={head['b']} (ecg, x{head['calls']}): {head['ms']:.4f} ms a "
             f"call ({head['device_ms']:.4f} on the device, {head['device_ms_cold']:.4f} cold), "
@@ -2809,11 +3031,15 @@ def helin_weight(stack, w):
 # port's kernels by their __global__ function (K3 and K4's forms are mont_*),
 # then PyTorch's; "int64 elementwise" counts, besides, the elementwise
 # kernels whose name carries a `long` type
-KERNEL_FAMILIES = (("ntt", ("ntt_",)), ("mont", ("mont_",)), ("mod_elem", ("mod_elem_kernel",)),
+KERNEL_FAMILIES = (("ntt", ("ntt_",)), ("mont", ("mont_",)), ("mod_elem", ("mod_elem_kernel", "mod_fused_kernel")),
                    ("mod_down", ("mod_down_kernel",)), ("index", ("index", "gather", "scatter")),
                    ("copy/cat", ("CatArray", "copy", "Copy")),
                    ("elementwise", ("elementwise", "reduce_kernel")))
 PROFILE_TOP = 12
+# PyTorch's own passes that K5 / K6 took in: its gathers and index
+# selections, torch.where and torch.stack / torch.cat; none may be left in
+# a replayed ECG keystream block
+PYTORCH_PASSES = ("index_elementwise_kernel", "gather", "scatter", "where_kernel", "CatArray")
 
 
 def kernel_family(name: str) -> str:
@@ -2853,16 +3079,20 @@ def profiled(fn) -> dict:
         v["share_of_busy"] = v["device_ms"] / busy_ms
     top = [{"device_ms": e.self_device_time_total / 1e3, "count": e.count, "name": e.key[:160]}
            for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:PROFILE_TOP]]
+    passes = [{"count": e.count, "device_ms": e.self_device_time_total / 1e3, "name": e.key[:160]}
+              for e in evs if any(tag in e.key for tag in PYTORCH_PASSES)]
     return {"kernels": sum(e.count for e in evs), "busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
-            "by_family": fams, "top": top}
+            "by_family": fams, "top": top, "pytorch_passes": passes}
 
 
-def phase_profile(tc, enc_key, block_ms, tag, block_graph_ms=None):
+def phase_profile(tc, enc_key, block_ms, tag, block_graph_ms=None, gate=False):
     """One keystream block of Transcipher `tc`, ``profiled``: replayed
     (``_jit_keystream``, the units' path; CUPTI traces a graph's kernel
     nodes) and, beside it, its eager body; each busy share also against the
     unprofiled ``block_graph_ms`` / ``block_ms``.  Where the replay's
-    profile holds no kernel, it says so."""
+    profile holds no kernel, it says so.  With `gate`, a PyTorch gather,
+    index, where or stack kernel (``PYTORCH_PASSES``) left in the replayed
+    block fails the run."""
     from hhe_tpu_torch.ops import pasta
 
     mats_qp, rcs_pt = tc.device_block_plaintexts(pasta.NONCE, 0)
@@ -2883,6 +3113,9 @@ def phase_profile(tc, enc_key, block_ms, tag, block_graph_ms=None):
         for e in prof["top"]:
             log(f"  {e['device_ms']:9.2f} ms {e['count']:6d}x  {e['name'][:100]}")
         out[name] = prof
+        if gate and name == "replayed" and (prof["pytorch_passes"] or not prof["kernels"]):
+            raise AssertionError(f"{tag}: PyTorch gathers, wheres or stacks left in the replayed "
+                                 f"block (or no kernel seen): {prof['pytorch_passes']}")
     return out
 
 
@@ -3125,7 +3358,7 @@ def main():
     stack, launches["ecg"], calls["ecg"], stats, (d0, x0) = phase_main_path()
     enc_key = stack.tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
     prof = phase_profile(stack.tc, enc_key, stats["block_ms"], "ECG keystream",
-                         stats["block_graph_ms"])
+                         stats["block_graph_ms"], gate=True)
     del enc_key
     free_device()
     graph_units = {"ecg": phase_graphs(stack, B)}
@@ -3167,6 +3400,7 @@ def main():
     free_device()
     large, launches["large_keystream"], calls["large_keystream"] = phase_large_keystream()
     free_device()
+    check_fused_modes(launches)
     rows = kernel_rows(launches, calls) + mont_rows(launches, calls) + elem_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     graph_units["mnist_2fc"] = mnist.pop("graph_units")

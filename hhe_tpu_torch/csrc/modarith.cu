@@ -6,16 +6,31 @@
 //
 // K5 and K6 stand for the XLA fusions of hhe_tpu/ops/modular.py `add_mod` /
 // `sub_mod` / `neg_mod`, hhe_tpu/ops/rns.py `reduce_u32` and
-// hhe_tpu/ops/bfv_eval.py `mod_down`; their plain versions are
-// ops/modular.py `add_mod_plain` / `sub_mod_plain` / `neg_mod_plain`,
-// ops/rns.py `reduce_u32_plain` and ops/bfv_eval.py `mod_down_plain`.  Both
-// are bound by their bytes (a few integer ops a word): each operand word is
-// read once and each output word written once, 16 bytes at a time where
-// the rows allow.  K5 writes a broadcast output (a digit decomposition:
-// every limb reduced modulo every modulus, larger than its input) from one
-// read of the input row a thread, walking the moduli itself; K6 reads c's
-// special-prime row once for all k limbs of a word.  One launch replaces
-// the 5-11 int64 PyTorch passes of a plain call (29 for `mod_down`).
+// hhe_tpu/ops/bfv_eval.py `mod_down`, and for what the JAX package does
+// around them: the galois gathers (`jnp.take` + `neg_mod` + `jnp.where` of
+// `apply_galois` and the BSGS matmul), the chained `add_mod` sums of the
+// giantsteps, BEHZ's centred `jnp.where` lifts, and the `add_mod` +
+// `jnp.stack` after a key-switch.  Their plain versions are ops/modular.py
+// `add_mod_plain` / `sub_mod_plain` / `neg_mod_plain` / `gather_mod_plain` /
+// `sum_mod_plain`, ops/rns.py `reduce_u32_plain` / `center_lift_plain` and
+// ops/bfv_eval.py `mod_down_plain`.  Both are bound by their bytes (a few
+// integer ops a word): each operand word is read once and each output word
+// written once, 16 bytes at a time where the rows allow.  K5 writes a
+// broadcast output (a digit decomposition: every limb reduced modulo every
+// modulus, larger than its input) from one read of the input row a thread,
+// walking the moduli itself; its fused form (mod_fused_kernel, apart so
+// that the elementwise layouts keep their registers and occupancy) reads
+// an operand through an int32 index
+// (one uncoalesced __ldg a word, coalesced 16-byte stores), keeping a
+// broadcast index and sign mask in registers for every row it walks, and
+// sums an axis exactly in u64.  K6 reads c's special-prime row, and a
+// gathered addend's index and mask, once for all k limbs of a word, adds up
+// to two addends (one of them read through the galois permutation) and
+// writes into the caller's stacked output.  Where a launch has too few
+// blocks to fill the card (one ciphertext), both split the rows a thread
+// walks over the grid's third axis.  One launch replaces the 5-11 int64
+// PyTorch passes of a plain call (29 for `mod_down`) and the gathers,
+// wheres, stacks and adds around it.
 //
 // They stand for the XLA fusions that the JAX package gets from
 // hhe_tpu/ops/modular.py `mont_mul` / `mont_mul_lazy` (one fused loop over a
@@ -103,8 +118,9 @@ struct Operand {
   int is64;                    // int64 storage (else int32)
 };
 
-struct Args {
-  Operand op[NOPS];
+template <int NO>
+struct ArgsT {
+  Operand op[NO];
   void* out;
   long long terms;             // length of the reduction axis; 1 for K3
   long long rows;              // general: product of size[0 .. MAXD - 2]; fan-out: of size[1 .. MAXD - 2]
@@ -113,6 +129,8 @@ struct Args {
   int out64;
   int lazy;                    // K3 only: leave [0, 2q)
 };
+
+using Args = ArgsT<NOPS>;
 
 __device__ __forceinline__ uint32_t load(const Operand& o, long long i) {
   if (o.ptr == nullptr) return o.scalar;
@@ -225,7 +243,8 @@ __device__ __forceinline__ uint32_t redc64(uint64_t x, uint32_t q, uint32_t qinv
 }
 
 // The offsets of row `row` of dimensions 1 .. MAXD - 2 (the fan-out forms)
-__device__ __forceinline__ void fan_row(const Args& g, long long row, long long (&off)[NOPS],
+template <int NO>
+__device__ __forceinline__ void fan_row(const ArgsT<NO>& g, long long row, long long (&off)[NO],
                                         long long& ooff) {
   unsigned int r = static_cast<unsigned int>(row);
 #pragma unroll
@@ -234,7 +253,7 @@ __device__ __forceinline__ void fan_row(const Args& g, long long row, long long 
       const unsigned int c = r % g.size[d];
       r /= g.size[d];
 #pragma unroll
-      for (int o = 0; o < NOPS; ++o) off[o] += c * g.op[o].stride[d];
+      for (int o = 0; o < NO; ++o) off[o] += c * g.op[o].stride[d];
       ooff += c * g.ostride[d];
     }
   }
@@ -513,28 +532,72 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) mont_fan_reg_kernel(const Args
 
 // K5: one modular elementwise op on u32 words, the JAX package's
 // add_mod / sub_mod / neg_mod (hhe_tpu/ops/modular.py) and reduce_u32
-// (hhe_tpu/ops/rns.py), in the same u32 arithmetic
-enum ElemOp { ADD = 0, SUB = 1, NEG = 2, REDUCE = 3 };
+// (hhe_tpu/ops/rns.py), in the same u32 arithmetic; CENTER lifts a residue
+// x mod m, taken as centred (x > h: x - m), to q: the jnp.where of BEHZ's
+// hhe_tpu/ops/bfv_eval.py `_to_bsk` / `_bsk_to_q` (b = m mod q); COPY
+// passes the (gathered, signed) operand through
+enum ElemOp { ADD = 0, SUB = 1, NEG = 2, REDUCE = 3, CENTER = 4, COPY = 5 };
 
-__device__ __forceinline__ uint32_t mod_elem(int op, uint32_t a, uint32_t b, uint32_t q) {
+__device__ __forceinline__ uint32_t mod_elem(int op, uint32_t a, uint32_t b, uint32_t q, uint32_t h = 0u) {
   if (op == ADD) {
     const uint32_t s = a + b;
     return s >= q ? s - q : s;
   }
   if (op == SUB) return a >= b ? a - b : a + q - b;
   if (op == NEG) return a == 0u ? a : q - a;
+  if (op == COPY) return a;
   uint32_t r = a;  // REDUCE: exactly three conditional subtracts
 #pragma unroll
   for (int i = 0; i < 3; ++i) r = r >= q ? r - q : r;
+  if (op == CENTER && a > h) r = r >= b ? r - b : r + q - b;
   return r;
 }
 
-// K5.  Operands a, b, q (kernel operands 0-2; operand 3 unused).  A thread
-// takes W consecutive words of the innermost axis of one row of dimensions
-// 1 .. MAXD - 2 (blockIdx.y, rows) and walks dimension 0, the fan-out,
-// itself: where a and b are broadcast over it (a digit decomposition: one
-// limb reduced modulo every modulus), it reads them once and writes one
-// output row a modulus.  Any other layout has a fan-out of 1.
+// K5's operands: a, b, q, h (CENTER's threshold, a scalar), the int32 index
+// a is read through along the innermost axis, and the bool mask of the
+// words negated mod q after the read
+constexpr int NELEM = 6;
+enum ElemOperand { EA = 0, EB = 1, EQ = 2, EH = 3, EIDX = 4, ESIGN = 5 };
+constexpr int ELEM_DESC_WORDS = HEAD + NELEM * (4 + MAXD) + 2 * MAXD;
+using ElemArgs = ArgsT<NELEM>;
+
+// W words of bool mask S from element i (one byte a word)
+template <int W>
+__device__ __forceinline__ void load_sign(const Operand& S, long long i, uint32_t (&v)[W]) {
+  const unsigned char* p = static_cast<const unsigned char*>(S.ptr) + i;
+  const bool bcast = S.stride[MAXD - 1] == 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) v[w] = __ldg(p + (bcast ? 0 : w));
+}
+
+// W words of a at row offset `off`: through the index ix where a is
+// gathered (one load a word: the uncoalesced side), else words j0 ..
+// j0 + W - 1 of the row; negated mod q where the mask sg is set
+template <int W>
+__device__ __forceinline__ void load_a(const Operand& A, long long off, long long j0, bool gathered,
+                                       const uint32_t (&ix)[W], bool sgn, const uint32_t (&sg)[W],
+                                       const uint32_t (&q)[W], uint32_t (&v)[W]) {
+  if (gathered) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = load(A, off + static_cast<long long>(ix[w]) * A.stride[MAXD - 1]);
+  } else {
+    load_words<W>(A, off + j0 * A.stride[MAXD - 1], v);
+  }
+  if (sgn) {
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      if (sg[w]) v[w] = mod_elem(NEG, v[w], 0u, q[w]);
+  }
+}
+
+// K5, an elementwise op.  Operands a, b, q and h (kernel operands 0-3).  A
+// thread takes W consecutive words of the innermost axis of one row of
+// dimensions 1 .. MAXD - 2 (blockIdx.y, rows) and walks dimension 0, the
+// fan-out, at blockIdx.z, blockIdx.z + gridDim.z, ...: where a and b are
+// broadcast over it (a digit decomposition: one limb reduced modulo every
+// modulus), it reads them once and writes one output row a modulus.  Any
+// other layout has a fan-out of 1.  Kept apart from mod_fused_kernel, whose
+// index, mask and terms would cost these layouts registers and occupancy.
 template <int W>
 __global__ void __launch_bounds__(MAX_THREADS) mod_elem_kernel(const Args g, int op) {
   const unsigned int inner = g.size[MAXD - 1];
@@ -544,6 +607,8 @@ __global__ void __launch_bounds__(MAX_THREADS) mod_elem_kernel(const Args g, int
   const Operand& A = g.op[0];
   const Operand& Bo = g.op[1];
   const Operand& Q = g.op[2];
+  const uint32_t h = g.op[3].scalar;
+  const unsigned int f0 = blockIdx.z;
   for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
     long long off[NOPS] = {0, 0, 0, 0};
     long long ooff = j;
@@ -551,16 +616,81 @@ __global__ void __launch_bounds__(MAX_THREADS) mod_elem_kernel(const Args g, int
 #pragma unroll
     for (int o = 0; o < 3; ++o) off[o] += j * g.op[o].stride[MAXD - 1];
     uint32_t a[W], b[W];
-    load_words<W>(A, off[0], a);
-    load_words<W>(Bo, off[1], b);
-    for (unsigned int f = 0; f < F; ++f) {
-      if (f > 0 && A.stride[0] != 0) load_words<W>(A, off[0] + f * A.stride[0], a);
-      if (f > 0 && Bo.stride[0] != 0) load_words<W>(Bo, off[1] + f * Bo.stride[0], b);
+    load_words<W>(A, off[0] + f0 * A.stride[0], a);
+    load_words<W>(Bo, off[1] + f0 * Bo.stride[0], b);
+    for (unsigned int f = f0; f < F; f += gridDim.z) {
+      if (f != f0 && A.stride[0] != 0) load_words<W>(A, off[0] + f * A.stride[0], a);
+      if (f != f0 && Bo.stride[0] != 0) load_words<W>(Bo, off[1] + f * Bo.stride[0], b);
       uint32_t q[W], r[W];
       load_words<W>(Q, off[2] + f * Q.stride[0], q);
 #pragma unroll
-      for (int w = 0; w < W; ++w) r[w] = mod_elem(op, a[w], b[w], q[w]);
+      for (int w = 0; w < W; ++w) r[w] = mod_elem(op, a[w], b[w], q[w], h);
       store_words<W>(g, ooff + f * g.ostride[0], r);
+    }
+  }
+}
+
+// K5 with a read through an index, a sign mask or a sum (ElemArgs: the
+// elementwise kernel's operands, the index and the mask).  The walk is
+// mod_elem_kernel's; where the index and mask are broadcast over the
+// fan-out (a galois permutation of every limb), a thread keeps their words
+// in registers for every row it walks.  With g.terms > 1 (ADD only: a sum
+// over an axis) each output word is b plus the sum of a's terms along that
+// axis (each term gathered and signed through its own index row where the
+// index varies along it), taken exactly in u64 and reduced once.
+template <int W>
+__global__ void __launch_bounds__(MAX_THREADS) mod_fused_kernel(const ElemArgs g, int op) {
+  const unsigned int inner = g.size[MAXD - 1];
+  const unsigned int F = g.size[0];
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * W;
+  if (j >= inner) return;
+  const Operand& A = g.op[EA];
+  const Operand& Bo = g.op[EB];
+  const Operand& Q = g.op[EQ];
+  const Operand& X = g.op[EIDX];
+  const Operand& S = g.op[ESIGN];
+  const bool gathered = X.ptr != nullptr;
+  const bool sgn = S.ptr != nullptr;
+  const uint32_t h = g.op[EH].scalar;
+  const int terms = static_cast<int>(g.terms);
+  for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
+    long long off[NELEM] = {0, 0, 0, 0, 0, 0};
+    long long ooff = j;
+    fan_row(g, row, off, ooff);
+#pragma unroll
+    for (int o = 1; o < NELEM; ++o) off[o] += j * g.op[o].stride[MAXD - 1];
+    uint32_t a[W], b[W], ix[W], sg[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) ix[w] = sg[w] = 0u;
+    bool first = true;
+    for (unsigned int f = blockIdx.z; f < F; f += gridDim.z, first = false) {
+      uint32_t q[W], r[W];
+      load_words<W>(Q, off[EQ] + f * Q.stride[0], q);
+      if (first || Bo.stride[0] != 0) load_words<W>(Bo, off[EB] + f * Bo.stride[0], b);
+      if (terms == 1) {
+        const bool newix = gathered && (first || X.stride[0] != 0);
+        const bool newsg = sgn && (first || S.stride[0] != 0);
+        if (newix) load_words<W>(X, off[EIDX] + f * X.stride[0], ix);
+        if (newsg) load_sign<W>(S, off[ESIGN] + f * S.stride[0], sg);
+        if (first || A.stride[0] != 0 || newix || newsg || (sgn && Q.stride[0] != 0))
+          load_a<W>(A, off[EA] + f * A.stride[0], j, gathered, ix, sgn, sg, q, a);
+#pragma unroll
+        for (int w = 0; w < W; ++w) r[w] = mod_elem(op, a[w], b[w], q[w], h);
+      } else {
+        uint64_t acc[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[w] = b[w];
+        for (int t = 0; t < terms; ++t) {
+          if (gathered) load_words<W>(X, off[EIDX] + f * X.stride[0] + t * X.rstride, ix);
+          if (sgn) load_sign<W>(S, off[ESIGN] + f * S.stride[0] + t * S.rstride, sg);
+          load_a<W>(A, off[EA] + f * A.stride[0] + t * A.rstride, j, gathered, ix, sgn, sg, q, a);
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc[w] += a[w];
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) r[w] = mod_q(acc[w], q[w], __drcp_rn(static_cast<double>(q[w])));
+      }
+      store_words<W>(g.out, g.out64, ooff + f * g.ostride[0], r);
     }
   }
 }
@@ -570,15 +700,33 @@ __global__ void __launch_bounds__(MAX_THREADS) mod_elem_kernel(const Args g, int
 // word n of c [..., k + 1, N] (row k: the residues mod P):
 //   a1 = reduce(xp, q_i), xp = c[k, n];
 //   fix = xp > p_half ? sub_mod(a1, P mod q_i, q_i) : a1;
-//   out[i, n] = mont_mul(sub_mod(c[i, n], fix, q_i), Mont(P^-1 mod q_i)).
+//   out[i, n] = mont_mul(sub_mod(c[i, n], fix, q_i), Mont(P^-1 mod q_i)),
+// plus, mod q_i, up to NADD addends in the output rows each covers: the
+// add_mod after a key-switch (apply_galois' permuted c0, relinearize's c0
+// and c1, a rotation's running sum), each addend read directly or through
+// an [N] index and sign mask (the galois permutation of apply_galois'
+// c0).  The output is [..., k, N], contiguous, fresh or the caller's slice
+// (the torch.stack of d0 and d1).
 constexpr int MAXL = MAXD - 2;  // c's leading dimensions after the wrapper's collapse
 constexpr int NCOLS = 4;        // q, qinv, P mod q, Mont(P^-1 mod q): [k] columns
+constexpr int NADD = 2;         // addends an output row may have
 constexpr int DOWN_HEAD = 9;    // out, out64, vec, threads, zsplit, k, inner, limb stride, p_half
-constexpr int DOWN_DESC_WORDS = DOWN_HEAD + 3 + 2 * MAXL + 3 * NCOLS;
+constexpr int ADD_WORDS = 8 + MAXL;  // ptr, is64, inner stride, limb stride, rows, idx, sign, spare, lead strides
+constexpr int DOWN_DESC_WORDS = DOWN_HEAD + 3 + 2 * MAXL + 3 * NCOLS + NADD * ADD_WORDS;
+
+struct Addend {
+  Operand x;                   // null: none; stride[MAXD - 1] along the innermost axis
+  Operand idx;                 // int32 [N] read through, or null
+  Operand sign;                // bool [N] negate mask, or null
+  long long lead_stride[MAXL];
+  long long limb_stride;
+  long long rows;              // covers the output's leading rows 0 .. rows - 1
+};
 
 struct DownArgs {
   Operand c;                   // stride[MAXD - 1]: along the innermost axis
   Operand col[NCOLS];          // stride[0]: along the limbs
+  Addend add[NADD];
   void* out;                   // [..., k, N], contiguous
   long long lead_size[MAXL];
   long long lead_stride[MAXL];
@@ -592,9 +740,10 @@ struct DownArgs {
 
 // A thread takes W consecutive words of one leading row (blockIdx.y, rows)
 // and walks the limbs blockIdx.z, blockIdx.z + gridDim.z, ...: it reads the
-// P row's words once and each limb's once, and writes each output word
-// once.  The wrapper splits the limbs over gridDim.z where the rows and
-// words alone would give too few blocks (one ciphertext's key-switch).
+// P row's words and a gathered addend's index and mask once, each limb's
+// words once, and writes each output word once.  The wrapper splits the
+// limbs over gridDim.z where the rows and words alone would give too few
+// blocks to fill the card (one ciphertext's key-switch: one limb a block).
 template <int W>
 __global__ void __launch_bounds__(MAX_THREADS) mod_down_kernel(const DownArgs g) {
   const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * W;
@@ -602,14 +751,29 @@ __global__ void __launch_bounds__(MAX_THREADS) mod_down_kernel(const DownArgs g)
   const long long istride = g.c.stride[MAXD - 1];
   for (long long row = blockIdx.y; row < g.rows; row += gridDim.y) {
     long long coff = j * istride;
+    long long aoff[NADD] = {0, 0};
     unsigned int r = static_cast<unsigned int>(row);
 #pragma unroll
     for (int d = MAXL - 1; d >= 0; --d) {
       const unsigned int size = static_cast<unsigned int>(g.lead_size[d]);
       if (size > 1) {
-        coff += (r % size) * g.lead_stride[d];
+        const unsigned int c = r % size;
+        coff += c * g.lead_stride[d];
+#pragma unroll
+        for (int e = 0; e < NADD; ++e) aoff[e] += c * g.add[e].lead_stride[d];
         r /= size;
       }
+    }
+    bool has[NADD];
+    uint32_t ix[NADD][W], sg[NADD][W];
+#pragma unroll
+    for (int e = 0; e < NADD; ++e) {
+      const Addend& ad = g.add[e];
+      has[e] = ad.x.ptr != nullptr && row < ad.rows;
+#pragma unroll
+      for (int w = 0; w < W; ++w) ix[e][w] = sg[e][w] = 0u;
+      if (has[e] && ad.idx.ptr != nullptr) load_words<W>(ad.idx, j, ix[e]);
+      if (has[e] && ad.sign.ptr != nullptr) load_sign<W>(ad.sign, j, sg[e]);
     }
     uint32_t xp[W];
     load_words<W>(g.c, coff + g.k * g.limb_stride, xp);
@@ -628,6 +792,18 @@ __global__ void __launch_bounds__(MAX_THREADS) mod_down_kernel(const DownArgs g)
         const uint32_t fix = xp[w] > g.p_half ? mod_elem(SUB, a1, pm, q) : a1;
         const uint64_t t = redc(mod_elem(SUB, c[w], fix, q), pinv, q, qinv);
         res[w] = static_cast<uint32_t>(t >= q ? t - q : t);
+      }
+#pragma unroll
+      for (int e = 0; e < NADD; ++e) {
+        if (!has[e]) continue;
+        const Addend& ad = g.add[e];
+        uint32_t qq[W], v[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) qq[w] = q;
+        load_a<W>(ad.x, aoff[e] + i * ad.limb_stride, j, ad.idx.ptr != nullptr, ix[e],
+                  ad.sign.ptr != nullptr, sg[e], qq, v);
+#pragma unroll
+        for (int w = 0; w < W; ++w) res[w] = mod_elem(ADD, res[w], v[w], q);
       }
       store_words<W>(g.out, g.out64, obase + static_cast<long long>(i) * g.inner, res);
     }
@@ -669,13 +845,14 @@ int on_device(int device, F launch_fn) {
 
 // hhe_mont's and hhe_mod_elem's descriptor into g, but for g.rows; false
 // if a size is out of range
-bool read_desc(const long long* desc, Args& g) {
+template <int NO>
+bool read_desc(const long long* desc, ArgsT<NO>& g) {
   g.out = reinterpret_cast<void*>(desc[0]);
   g.out64 = static_cast<int>(desc[1]);
   g.lazy = static_cast<int>(desc[2]);
   g.terms = desc[3];
   const long long* p = desc + HEAD;
-  for (int o = 0; o < NOPS; ++o, p += 4 + MAXD) {
+  for (int o = 0; o < NO; ++o, p += 4 + MAXD) {
     g.op[o].ptr = reinterpret_cast<const void*>(p[0]);
     g.op[o].is64 = static_cast<int>(p[1]);
     g.op[o].scalar = static_cast<unsigned int>(p[2]);
@@ -753,28 +930,56 @@ int hhe_mont(const long long* desc, int device, void* stream) {
   });
 }
 
-// K5: hhe_mont's descriptor with terms 1, form GENERAL and lazy 0; kernel
-// operands a, b, q (operand 3 unused); dimension 0 the fan-out (any sizes,
-// the output's strides over them); op one of ElemOp.
+// K5.  desc (ELEM_DESC_WORDS int64): out, out64, 0, terms, vec, zsplit,
+// threads; then hhe_mont's operand words for a, b, q, h, the index and the
+// mask (ptr 0: a scalar, or none for the index and the mask); then
+// size[MAXD] and the output's ostride[MAXD].  Dimension 0 is the fan-out,
+// split over zsplit blocks; a is read through the index (its innermost
+// stride scales the index) where one is given; terms > 1 only for ADD (a
+// sum along the axis of the operands' rstrides).  vec: as hhe_mont's, a
+// gathered a and the mask aside (read a word at a time).
 int hhe_mod_elem(const long long* desc, int op, int device, void* stream) {
-  Args g;
+  ElemArgs g;
   if (!read_desc(desc, g)) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = desc[4] != 0;
+  const long long zsplit = desc[5];
   const int threads = static_cast<int>(desc[6]);
   g.rows = 1;
   for (int d = 1; d < MAXD - 1; ++d) g.rows *= g.size[d];
-  if (g.rows >= (1LL << 31) || g.terms != 1 || g.lazy || desc[5] != GENERAL || op < ADD ||
-      op > REDUCE || (vec && g.size[MAXD - 1] % 4 != 0) || threads < 32 || threads > MAX_THREADS ||
-      threads % 32 != 0)
+  if (g.rows >= (1LL << 31) || g.terms < 1 || g.terms >= (1LL << 20) || (g.terms > 1 && op != ADD) ||
+      g.lazy || op < ADD || op > COPY || zsplit < 1 || zsplit > g.size[0] || zsplit > 65535 ||
+      g.op[EA].ptr == nullptr || (g.op[EIDX].ptr != nullptr && g.op[EIDX].is64) ||
+      (g.op[ESIGN].ptr != nullptr && g.op[ESIGN].is64) || (vec && g.size[MAXD - 1] % 4 != 0) ||
+      threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long per_block = static_cast<long long>(threads) * (vec ? 4 : 1);
-  const dim3 grid = row_grid((g.size[MAXD - 1] + per_block - 1) / per_block, g.rows);
+  const dim3 grid = row_grid((g.size[MAXD - 1] + per_block - 1) / per_block, g.rows, zsplit);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (g.op[EIDX].ptr != nullptr || g.op[ESIGN].ptr != nullptr || g.terms > 1) {
+    return on_device(device, [&]() {
+      if (vec)
+        mod_fused_kernel<4><<<grid, threads, 0, st>>>(g, op);
+      else
+        mod_fused_kernel<1><<<grid, threads, 0, st>>>(g, op);
+      return cudaGetLastError();
+    });
+  }
+  Args e;  // the elementwise op: the first NOPS operands
+  for (int o = 0; o < NOPS; ++o) e.op[o] = g.op[o];
+  e.out = g.out;
+  e.terms = g.terms;
+  e.rows = g.rows;
+  for (int d = 0; d < MAXD; ++d) {
+    e.size[d] = g.size[d];
+    e.ostride[d] = g.ostride[d];
+  }
+  e.out64 = g.out64;
+  e.lazy = g.lazy;
   return on_device(device, [&]() {
     if (vec)
-      mod_elem_kernel<4><<<grid, threads, 0, st>>>(g, op);
+      mod_elem_kernel<4><<<grid, threads, 0, st>>>(e, op);
     else
-      mod_elem_kernel<1><<<grid, threads, 0, st>>>(g, op);
+      mod_elem_kernel<1><<<grid, threads, 0, st>>>(e, op);
     return cudaGetLastError();
   });
 }
@@ -783,9 +988,13 @@ int hhe_mod_elem(const long long* desc, int op, int device, void* stream) {
 // inner, c's limb stride, p_half; c: ptr, is64, innermost stride; c's
 // leading sizes[MAXL] and strides[MAXL] (the output's rows, in order); then
 // for q, qinv, P mod q and Mont(P^-1 mod q): ptr, is64, stride along the
-// limbs.  vec: c runs
-// contiguously along the innermost axis from a 16-byte aligned word, its
-// limb and leading strides are multiples of 4 and inner % 4 == 0.
+// limbs; then for each of the NADD addends: ptr (0: none), is64, innermost
+// stride, limb stride, the leading rows it covers, the [N] int32 index and
+// bool mask (0: none), 0, and its strides over c's leading sizes.  vec: c
+// and every addend not read through an index run contiguously along the
+// innermost axis from a 16-byte aligned word, with limb and leading strides
+// that are multiples of 4, the output and the indices are 16-byte aligned,
+// and inner % 4 == 0.
 int hhe_mod_down(const long long* desc, int device, void* stream) {
   DownArgs g;
   g.out = reinterpret_cast<void*>(desc[0]);
@@ -816,10 +1025,28 @@ int hhe_mod_down(const long long* desc, int device, void* stream) {
     g.col[o].stride[0] = p[2];
     cols = cols && p[0] != 0;
   }
+  bool adds = true;
+  for (int e = 0; e < NADD; ++e, p += ADD_WORDS) {
+    Addend& ad = g.add[e];
+    ad.x = Operand{};
+    ad.idx = Operand{};
+    ad.sign = Operand{};
+    ad.x.ptr = reinterpret_cast<const void*>(p[0]);
+    ad.x.is64 = static_cast<int>(p[1]);
+    ad.x.stride[MAXD - 1] = p[2];
+    ad.limb_stride = p[3];
+    ad.rows = p[4];
+    ad.idx.ptr = reinterpret_cast<const void*>(p[5]);
+    ad.idx.stride[MAXD - 1] = 1;
+    ad.sign.ptr = reinterpret_cast<const void*>(p[6]);
+    ad.sign.stride[MAXD - 1] = 1;
+    for (int d = 0; d < MAXL; ++d) ad.lead_stride[d] = p[8 + d];
+    adds = adds && ad.rows >= 0 && ad.rows <= g.rows && (ad.x.ptr != nullptr || (p[5] == 0 && p[6] == 0));
+  }
   if (k < 1 || k >= (1LL << 31) || inner < 1 || inner >= (1LL << 31) || g.rows >= (1LL << 31) ||
-      desc[8] < 0 || desc[8] >= (1LL << 32) || g.c.ptr == nullptr || !cols || zsplit < 1 || zsplit > k ||
-      zsplit > 65535 || (vec && (inner % 4 != 0 || g.c.stride[MAXD - 1] != 1)) || threads < 32 ||
-      threads > MAX_THREADS || threads % 32 != 0)
+      desc[8] < 0 || desc[8] >= (1LL << 32) || g.c.ptr == nullptr || !cols || !adds || zsplit < 1 ||
+      zsplit > k || zsplit > 65535 || (vec && (inner % 4 != 0 || g.c.stride[MAXD - 1] != 1)) ||
+      threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   g.k = static_cast<unsigned int>(k);
   g.inner = static_cast<unsigned int>(inner);
@@ -837,6 +1064,8 @@ int hhe_mod_down(const long long* desc, int device, void* stream) {
 }
 
 int hhe_mont_desc_words() { return DESC_WORDS; }
+
+int hhe_mod_elem_desc_words() { return ELEM_DESC_WORDS; }
 
 int hhe_mod_down_desc_words() { return DOWN_DESC_WORDS; }
 

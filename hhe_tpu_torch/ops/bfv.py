@@ -472,13 +472,14 @@ class Context:
         return src, sign
 
     def galois_perm_device(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``galois_perm(g)`` on the context's device (int64 source index,
-        bool negate mask), uploaded once per element and kept: a rotation
-        reads them on every call, and a captured graph cannot upload."""
+        """``galois_perm(g)`` on the context's device (int32 source index,
+        bool negate mask: what K5's gather and K6's addend read), uploaded
+        once per element and kept: a rotation reads them on every call, and
+        a captured graph cannot upload."""
         hit = self._galois_dev_cache.get(g)
         if hit is None:
             src, sign = self.galois_perm(g)
-            hit = self._galois_dev_cache[g] = (torch.as_tensor(src, device=self.device),
+            hit = self._galois_dev_cache[g] = (torch.as_tensor(src.astype(np.int32), device=self.device),
                                                torch.as_tensor(sign, device=self.device))
         return hit
 

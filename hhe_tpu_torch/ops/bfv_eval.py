@@ -4,7 +4,9 @@ Plain functions on int32 ``[size, (B,) k, N]`` ciphertext tensors:
 
 - add/sub/negate/add_plain/multiply_plain;
 - apply_galois / rotate_rows / rotate_columns: coefficient permutation by
-  index selection on the last axis, then hybrid key-switch;
+  index selection on the last axis, then hybrid key-switch (on the card:
+  one K5 gather of c1; K6 adds the permuted c0, and a ciphertext ``plus``,
+  in the mod-down's launch);
 - key-switch: RNS-digit decomposition over the data primes, inner product
   with NTT-domain keys over q ∪ {P}, mod-down by the special prime;
 - multiply/square/relinearize: BEHZ RNS multiplication (m_tilde-corrected
@@ -31,9 +33,10 @@ import torch
 
 from . import ntt, rns
 from .bfv import Ciphertext, Context, KSwitchKey
-from .modular import (add_mod, mont_mac, mont_mul, mont_mul_plain, neg_mod, sub_mod,
-                      sub_mod_plain, to_mont_host)
-from .rns import reduce_u32, reduce_u32_plain
+from .mod_kernels import Addend, addend
+from .modular import (add_mod, add_mod_plain, gather_mod, gather_mod_plain, mont_mac, mont_mul,
+                      into_out, mont_mul_plain, neg_mod, sub_mod, sub_mod_plain, to_mont_host)
+from .rns import center_lift, reduce_u32, reduce_u32_plain
 
 I64 = torch.int64
 
@@ -148,9 +151,13 @@ def negate(ctx: Context, a: Ciphertext) -> Ciphertext:
 
 
 def add_plain(ctx: Context, a: Ciphertext, pt_dev: torch.Tensor) -> Ciphertext:
-    """pt_dev = Context.plain_for_add(pt): [k, N] scaled round(Q m / t)."""
-    c0 = add_mod(a.data[0], ctx.take(pt_dev), ctx.tb_q.q)
-    return Ciphertext(torch.cat([c0[None], a.data[1:]], 0))
+    """pt_dev = Context.plain_for_add(pt): [k, N] scaled round(Q m / t).
+    Row 0's sum is written into its place of the result, the other rows
+    copied beside it (no concatenation)."""
+    out = torch.empty(a.data.shape, dtype=a.data.dtype, device=a.data.device)
+    add_mod(a.data[0], ctx.take(pt_dev), ctx.tb_q.q, out=out[0])
+    out[1:].copy_(a.data[1:])
+    return Ciphertext(out)
 
 
 def multiply_plain(ctx: Context, a: Ciphertext, pt_ntt_mont: torch.Tensor) -> Ciphertext:
@@ -212,28 +219,37 @@ def hoisted_ks_products(ctx: Context, fd_perm: torch.Tensor, ksk: KSwitchKey,
     return mont_mac(fd_perm, pair, ctx.tb_qp.q, ctx.tb_qp.qinv_neg, -3)
 
 
-def mod_down(ctx: Context, c: torch.Tensor) -> torch.Tensor:
+def mod_down(ctx: Context, c: torch.Tensor, adds=(), out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Divide-and-round by the special prime: [..., k+1, N] coeff over q ∪ P
-    -> [..., k, N] over q (the rows of ctx's q; P's the last row of c).  A
-    CUDA c goes to the K6 kernel (``mod_kernels.mod_down``, one launch), a
-    CPU c to ``mod_down_plain``."""
+    -> [..., k, N] over q (the rows of ctx's q; P's the last row of c), plus
+    up to two ``Addend``s (or tensors) mod q, each added to the output rows
+    its first axis covers (``mod_kernels.Addend``), into ``out`` where
+    given.  A CUDA c goes to the K6 kernel (``mod_kernels.mod_down``, one
+    launch), a CPU c to ``mod_down_plain``."""
     ec = eval_consts(ctx)
     consts = (ec.q, ec.qi, ec.p_mod_q, ec.p_inv_mont, ec.p_half)
     if c.is_cuda:
         from . import mod_kernels
 
-        return mod_kernels.mod_down(c, *consts)
-    return mod_down_plain(c, *consts)
+        return mod_kernels.mod_down(c, *consts, adds=adds, out=out)
+    return mod_down_plain(c, *consts, adds=adds, out=out)
 
 
-def mod_down_plain(c, q, qinv_neg, p_mod_q, p_inv_mont, p_half) -> torch.Tensor:
+def mod_down_plain(c, q, qinv_neg, p_mod_q, p_inv_mont, p_half, adds=(), out=None) -> torch.Tensor:
     """Plain version of ``mod_down`` (int64 PyTorch), on the K6 wrapper's
     arguments: [k, 1] columns q, qinv_neg, P mod q, Mont(P^-1 mod q) and
-    p_half = P // 2."""
+    p_half = P // 2; the addends each ``add_mod_plain``-ed (read through
+    ``gather_mod_plain`` where gathered) into the rows they cover."""
     xp = c[..., -1:, :]
     a1 = reduce_u32_plain(xp, q)
     fix = torch.where(xp > p_half, sub_mod_plain(a1, p_mod_q, q), a1)
-    return mont_mul_plain(sub_mod_plain(c[..., :-1, :], fix, q), p_inv_mont, q, qinv_neg)
+    res = mont_mul_plain(sub_mod_plain(c[..., :-1, :], fix, q), p_inv_mont, q, qinv_neg)
+    for x, idx, sign in map(addend, adds):
+        if idx is not None:
+            x = gather_mod_plain(x, idx, q, sign)
+        rows = x.shape[0] if res.dim() > 2 else None
+        res[:rows] = add_mod_plain(res[:rows], x, q)
+    return into_out(res, out)
 
 
 def keyswitch(
@@ -248,6 +264,19 @@ def keyswitch(
     ``digit_chunk`` processes the decomposition digits in groups of that
     size, bounding the hoisted-digit temporary; modular adds are exact so
     the regrouped accumulation is bit-identical."""
+    d = mod_down(ctx, keyswitch_products(ctx, poly_q, ksk, digit_chunk))  # [2, ..., k', N]
+    return d[0], d[1]
+
+
+def keyswitch_products(
+    ctx: Context,
+    poly_q: torch.Tensor,
+    ksk: KSwitchKey,
+    digit_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """``keyswitch`` up to its mod-down: [2, ..., k'+1, N] coefficients over
+    q ∪ P, k0's first, for a ``mod_down`` that adds what the caller adds to
+    d0 and d1 in the same launch."""
     kd = ctx.whole.k
     if digit_chunk is None or digit_chunk >= kd:
         acc = hoisted_ks_products(ctx, hoist_digits(ctx, poly_q), ksk)
@@ -259,26 +288,40 @@ def keyswitch(
             fd = ntt.ntt_fwd(_digits(ctx, poly_q, s, e), ctx.tb_qp)
             part = hoisted_ks_products(ctx, fd, ksk, slice(s, e))
             acc = part if acc is None else add_mod(acc, part, ctx.tb_qp.q)
-    d = mod_down(ctx, ntt.ntt_inv(acc, ctx.tb_qp))  # [2, ..., k', N]
-    return d[0], d[1]
+    return ntt.ntt_inv(acc, ctx.tb_qp)
 
 
-def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey) -> Ciphertext:
-    """x(X) -> x(X^g) on a size-2 ciphertext + key-switch back to s."""
+def _plus(plus: Optional[Ciphertext]):
+    """The addend of a ciphertext added to a key-switch's result."""
+    if plus is None:
+        return ()
+    if plus.size != 2:
+        raise ValueError(f"only a size-2 ciphertext is added in the mod-down, got {plus.size}")
+    return (plus.data,)
+
+
+def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey,
+                 plus: Optional[Ciphertext] = None) -> Ciphertext:
+    """x(X) -> x(X^g) on a size-2 ciphertext + key-switch back to s, plus
+    the size-2 ciphertext ``plus`` where given (``add(plus, rotation)``).
+
+    The permuted c1 is one signed gather (``gather_mod``); the permuted c0
+    is never formed: the mod-down reads it through the permutation as an
+    addend of d0, writes d0 and d1 stacked, and adds ``plus`` in the same
+    launch (K6)."""
     if ct.size != 2:
         raise ValueError("relinearize before rotating")
     src, sign = ctx.galois_perm_device(g)
-    q = ctx.tb_q.q
-    perm = ct.data[..., src]
-    perm = torch.where(sign, neg_mod(perm, q), perm)
-    d0, d1 = keyswitch(ctx, perm[1], gk)
-    return Ciphertext(torch.stack([add_mod(perm[0], d0, q), d1]))
+    acc = keyswitch_products(ctx, gather_mod(ct.data[1], src, ctx.tb_q.q, sign), gk)
+    return Ciphertext(mod_down(ctx, acc, (Addend(ct.data[:1], src, sign),) + _plus(plus)))
 
 
-def rotate_rows(ctx: Context, ct: Ciphertext, step: int, gks: Dict[int, KSwitchKey]) -> Ciphertext:
-    """Rotate both rows left by `step` slots (SEAL rotate_rows semantics)."""
+def rotate_rows(ctx: Context, ct: Ciphertext, step: int, gks: Dict[int, KSwitchKey],
+                plus: Optional[Ciphertext] = None) -> Ciphertext:
+    """Rotate both rows left by `step` slots (SEAL rotate_rows semantics),
+    plus ``plus`` where given."""
     g = ctx.galois_elt_from_step(step)
-    return apply_galois(ctx, ct, g, gks[g])
+    return apply_galois(ctx, ct, g, gks[g], plus)
 
 
 def rotate_columns(ctx: Context, ct: Ciphertext, gks: Dict[int, KSwitchKey]) -> Ciphertext:
@@ -291,15 +334,15 @@ def relinearize(
     ct: Ciphertext,
     rk: KSwitchKey,
     digit_chunk: Optional[int] = None,
+    plus: Optional[Ciphertext] = None,
 ) -> Ciphertext:
-    """Size-3 -> size-2 using the relin key (target s^2)."""
+    """Size-3 -> size-2 using the relin key (target s^2), plus the size-2
+    ciphertext ``plus`` where given; c0 and c1 (and ``plus``) are added to
+    d0 and d1 in the mod-down's launch."""
     if ct.size != 3:
         raise ValueError(f"relinearize needs a size-3 ciphertext, got {ct.size}")
-    q = ctx.tb_q.q
-    d0, d1 = keyswitch(ctx, ct.data[2], rk, digit_chunk=digit_chunk)
-    return Ciphertext(
-        torch.stack([add_mod(ct.data[0], d0, q), add_mod(ct.data[1], d1, q)])
-    )
+    acc = keyswitch_products(ctx, ct.data[2], rk, digit_chunk=digit_chunk)
+    return Ciphertext(mod_down(ctx, acc, (ct.data[:2],) + _plus(plus)))
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +357,13 @@ def _to_bsk(ctx: Context, x: torch.Tensor) -> torch.Tensor:
     tmp = mont_mul(x, ec.mtilde_inv_mont, ec.q, ec.qi)  # digits of x * m_tilde
     cb = rns.fbc_from_digits(tmp, ec.fbc_q_to_bsk)
     cm = rns.fbc_digits_to_pow2(tmp, ec.tilde_mod_mtilde, ctx.m_tilde_bits)
-    r = (cm.to(I64) * ec.neg_qinv_mtilde) & (ctx.m_tilde - 1)
-    # centered r as residue mod each Bsk modulus (b > 2^16 always)
-    r = r[..., None, :]
-    r_mod_b = torch.where(r < ctx.m_tilde // 2, r, r + (ec.bq - ctx.m_tilde))
+    r = ((cm.to(I64) * ec.neg_qinv_mtilde) & (ctx.m_tilde - 1)).to(x.dtype)  # < 2^16
+    # centered r as residue mod each Bsk modulus (b > 2^16 always): r, or
+    # r - m_tilde + b where r >= m_tilde / 2
+    r_mod_b = center_lift(r[..., None, :], ctx.m_tilde, ec.bq, ctx.m_tilde // 2 - 1)
     return add_mod(
         mont_mul(cb, ec.mtinv_bsk_mont, ec.bq, ec.bqi),
-        mont_mul(r_mod_b, ec.q_mtinv_bsk_mont, ec.bq, ec.bqi).to(x.dtype),
+        mont_mul(r_mod_b, ec.q_mtinv_bsk_mont, ec.bq, ec.bqi),
         ec.bq,
     )
 
@@ -338,23 +381,28 @@ def _bsk_to_q(ctx: Context, x_bsk: torch.Tensor) -> torch.Tensor:
     alpha = mont_mul(
         sub_mod(y_msk, x_msk, msk_q), ec.binv_msk_mont, msk_q, msk_qi
     )  # [...,1,N] in [0, m_sk)
-    a1 = reduce_u32(alpha, ec.q)
-    alpha_c = torch.where(alpha > ec.msk_half, sub_mod(a1, ec.msk_mod_q, ec.q), a1)
+    alpha_c = center_lift(alpha, ec.msk_mod_q, ec.q, ec.msk_half)
     corr = mont_mul(alpha_c, ec.b_mod_q_mont, ec.q, ec.qi)
     return sub_mod(y_q, corr, ec.q)
 
 
 def _tensor(fa: torch.Tensor, fb_mont: torch.Tensor, q, qi) -> torch.Tensor:
-    """NTT-domain tensor product of ciphertexts sized s1, s2 -> s1+s2-1."""
+    """NTT-domain tensor product of ciphertexts sized s1, s2 -> s1+s2-1,
+    each component's last product or sum written into its place of the
+    result (no stack)."""
     s1, s2 = fa.shape[0], fb_mont.shape[0]
-    out = []
+    shape = torch.broadcast_shapes(fa.shape[1:], fb_mont.shape[1:])
+    out = torch.empty((s1 + s2 - 1, *shape), dtype=fa.dtype, device=fa.device)
     for d in range(s1 + s2 - 1):
+        terms = range(max(0, d - s2 + 1), min(s1, d + 1))
         acc = None
-        for i in range(max(0, d - s2 + 1), min(s1, d + 1)):
-            t = mont_mul(fa[i], fb_mont[d - i], q, qi)
-            acc = t if acc is None else add_mod(acc, t, q)
-        out.append(acc)
-    return torch.stack(out)
+        for n, i in enumerate(terms):
+            last = out[d] if n == len(terms) - 1 else None
+            if acc is None:
+                acc = mont_mul(fa[i], fb_mont[d - i], q, qi, out=last)
+            else:
+                acc = add_mod(acc, mont_mul(fa[i], fb_mont[d - i], q, qi), q, out=last)
+    return out
 
 
 def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:

@@ -83,7 +83,7 @@ def flatten(
     """Concatenate block ciphertexts: sum_i rotate_rows(ct_i, -i*block)."""
     acc = cts[0]
     for i, ct in enumerate(cts[1:], start=1):
-        acc = bfv_eval.add(ctx, acc, bfv_eval.rotate_rows(ctx, ct, -i * block, gks))
+        acc = bfv_eval.rotate_rows(ctx, ct, -i * block, gks, plus=acc)
     return acc
 
 
@@ -119,5 +119,5 @@ def encrypted_vec_sum_log(
     half = ctx.n // 2
     acc = ct
     for j in range(int(math.log2(half))):
-        acc = bfv_eval.add(ctx, acc, bfv_eval.rotate_rows(ctx, acc, 1 << j, gks))
+        acc = bfv_eval.rotate_rows(ctx, acc, 1 << j, gks, plus=acc)
     return acc

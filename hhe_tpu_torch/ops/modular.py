@@ -16,10 +16,12 @@ Every function returns the dtype of its first tensor argument; tables and
 constants are int64 ``[k, 1]`` columns that broadcast against ``[..., k, N]``.
 ``host`` is the numpy u64 golden model.
 
-``mont_mul``, ``mont_mul_lazy``, ``mont_mac``, ``add_mod``, ``sub_mod`` and
-``neg_mod`` send a CUDA tensor ``a`` to the hand-written kernels of
-``mod_kernels`` (K3, K4, and K5 for the last three), which raise on what
-they do not take, and a CPU tensor to their plain versions (``*_plain``).
+``mont_mul``, ``mont_mul_lazy``, ``mont_mac``, ``add_mod``, ``sub_mod``,
+``neg_mod``, ``gather_mod`` and ``sum_mod`` send a CUDA tensor ``a`` to the
+hand-written kernels of ``mod_kernels`` (K3, K4, and K5 for the last five),
+which raise on what they do not take, and a CPU tensor to their plain
+versions (``*_plain``).  ``mont_mul``, ``mont_mac`` and ``add_mod`` write
+into a caller's contiguous ``out`` where one is given.
 The kernels read every operand as u32 bits (an int64 by its low 32), the
 plain versions compute exactly in int64: the two agree for operands in
 [0, 2^31), and for ``sub_mod`` / ``neg_mod`` below their row's q (there
@@ -95,13 +97,26 @@ def _on_cuda(a) -> bool:
     return isinstance(a, torch.Tensor) and a.is_cuda
 
 
-def mont_mul(a, b_mont, q, qinv_neg):
-    """Montgomery product: a * b_mont * 2^-32 mod q, in [0, q)."""
+def into_out(res, out):
+    """A plain version's result, written into ``out`` where one is given
+    (the kernels' ``out=``: a contiguous tensor of the result's shape)."""
+    if out is None:
+        return res
+    if tuple(out.shape) != tuple(res.shape) or out.dtype != res.dtype or not out.is_contiguous():
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} is not a contiguous "
+                         f"{tuple(res.shape)} {res.dtype}")
+    return out.copy_(res)
+
+
+def mont_mul(a, b_mont, q, qinv_neg, out=None):
+    """Montgomery product: a * b_mont * 2^-32 mod q, in [0, q) (into
+    ``out`` where given, as for ``mont_mac``, ``add_mod`` and the K5 modes
+    below)."""
     if _on_cuda(a):
         from . import mod_kernels
 
-        return mod_kernels.mont_mul(a, b_mont, q, qinv_neg)
-    return mont_mul_plain(a, b_mont, q, qinv_neg)
+        return mod_kernels.mont_mul(a, b_mont, q, qinv_neg, out=out)
+    return into_out(mont_mul_plain(a, b_mont, q, qinv_neg), out)
 
 
 def mont_mul_lazy(a, b_mont, q, qinv_neg):
@@ -114,7 +129,7 @@ def mont_mul_lazy(a, b_mont, q, qinv_neg):
     return mont_mul_lazy_plain(a, b_mont, q, qinv_neg)
 
 
-def mont_mac(a, b_mont, q, qinv_neg, dim: int):
+def mont_mac(a, b_mont, q, qinv_neg, dim: int, out=None):
     """Montgomery multiply-accumulate: the sum over axis ``dim`` of the
     broadcast of a and b_mont of mont_mul(a, b_mont) mod q, in [0, q), with
     that axis removed; q and qinv_neg broadcast against the same shape and
@@ -122,8 +137,8 @@ def mont_mac(a, b_mont, q, qinv_neg, dim: int):
     if _on_cuda(a):
         from . import mod_kernels
 
-        return mod_kernels.mont_mac(a, b_mont, q, qinv_neg, dim)
-    return mont_mac_plain(a, b_mont, q, qinv_neg, dim)
+        return mod_kernels.mont_mac(a, b_mont, q, qinv_neg, dim, out=out)
+    return into_out(mont_mac_plain(a, b_mont, q, qinv_neg, dim), out)
 
 
 def mont_mul_plain(a, b_mont, q, qinv_neg):
@@ -145,13 +160,13 @@ def mont_mac_plain(a, b_mont, q, qinv_neg, dim: int):
     return tree_add_mod_plain(t, q, axis=dim).select(dim, 0)
 
 
-def add_mod(a, b, q):
+def add_mod(a, b, q, out=None):
     """a + b mod q (a, b < q), in a's dtype."""
     if _on_cuda(a):
         from . import mod_kernels
 
-        return mod_kernels.mod_elem("add", a, b, q)
-    return add_mod_plain(a, b, q)
+        return mod_kernels.mod_elem("add", a, b, q, out=out)
+    return into_out(add_mod_plain(a, b, q), out)
 
 
 def sub_mod(a, b, q):
@@ -189,6 +204,51 @@ def neg_mod_plain(a, q):
     """Plain version of ``neg_mod``."""
     a64 = _w(a)
     return _like(torch.where(a64 == 0, a64, _w(q) - a64), a)
+
+
+def gather_mod(a, idx, q=None, sign=None):
+    """a read through the int32 index ``idx`` along the last axis, ``out[...,
+    n] = a[..., idx[..., n]]`` over the broadcast of a, idx and sign (one
+    index row per leading index where idx has them), negated mod q (a < q)
+    where the bool ``sign`` is set: a galois permutation (``jnp.take`` +
+    ``neg_mod`` + ``jnp.where`` in the JAX package); one K5 launch on the
+    card."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mod_gather(a, idx, q, sign)
+    return gather_mod_plain(a, idx, q, sign)
+
+
+def gather_mod_plain(a, idx, q=None, sign=None):
+    """Plain version of ``gather_mod`` (int64 PyTorch)."""
+    shape = torch.broadcast_shapes(*(x.shape for x in (a, idx, sign, q) if isinstance(x, torch.Tensor)))
+    out = torch.gather(a.expand(shape), -1, idx.to(I64).expand(shape))
+    if sign is None:
+        return out
+    return torch.where(sign, neg_mod_plain(out, q), out)
+
+
+def sum_mod(a, q, dim: int, idx=None, sign=None):
+    """The sum mod q over axis ``dim`` of a (terms below q), read through
+    ``idx`` and signed by ``sign`` as ``gather_mod`` where given (each term
+    through its own index row where idx varies along the axis), the axis
+    removed, q constant along it: a chain or tree of ``add_mod`` in the JAX
+    package (the BSGS giantstep sums); one K5 launch on the card."""
+    if _on_cuda(a):
+        from . import mod_kernels
+
+        return mod_kernels.mod_sum(a, q, dim, idx, sign)
+    return sum_mod_plain(a, q, dim, idx, sign)
+
+
+def sum_mod_plain(a, q, dim: int, idx=None, sign=None):
+    """Plain version of ``sum_mod``: the exact int64 sum, reduced once."""
+    x = a if idx is None else gather_mod_plain(a, idx, q, sign)
+    s = x.to(I64).sum(dim)
+    if isinstance(q, torch.Tensor):
+        q = torch.broadcast_to(q, x.shape).select(dim, 0).to(I64)
+    return (s % q).to(a.dtype)
 
 
 def _tree_add(t, q, axis, add):

@@ -160,3 +160,23 @@ def reduce_u32_plain(x: torch.Tensor, q) -> torch.Tensor:
     for _ in range(3):
         r = torch.where(r >= q, r - q, r)
     return r.to(x.dtype)
+
+
+def center_lift(x: torch.Tensor, m_mod_q, q, half: int) -> torch.Tensor:
+    """x in [0, m) (below 2^31) taken as the centred residue mod m (x > half
+    stands for x - m), lifted to q: reduce_u32(x, q), less m mod q where x >
+    half -- the ``jnp.where`` of BEHZ's ``_bsk_to_q`` (alpha mod m_sk to q)
+    and ``_to_bsk`` (r mod m_tilde to Bsk) in the JAX package; one K5 launch
+    on the card (``mod_kernels.mod_center``), ``center_lift_plain`` on the
+    CPU."""
+    if x.is_cuda:
+        from . import mod_kernels
+
+        return mod_kernels.mod_center(x, m_mod_q, q, half)
+    return center_lift_plain(x, m_mod_q, q, half)
+
+
+def center_lift_plain(x: torch.Tensor, m_mod_q, q, half: int) -> torch.Tensor:
+    """Plain version of ``center_lift`` (int64 PyTorch)."""
+    r = reduce_u32_plain(x, q)
+    return torch.where(x > half, modular.sub_mod_plain(r, m_mod_q, q), r)

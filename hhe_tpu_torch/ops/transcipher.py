@@ -42,7 +42,7 @@ import torch
 from ..utils import graphs
 from . import bfv_eval, ntt, pasta, rns
 from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
-from .modular import add_mod, mont_mac, mont_mul, neg_mod, to_mont_host
+from .modular import add_mod, gather_mod, mont_mac, mont_mul, neg_mod, sum_mod, to_mont_host
 
 T = pasta.PASTA_T
 # BSGS split of the 128 diagonals: n1 babysteps x n2 giantsteps.  Any split
@@ -67,12 +67,6 @@ def galois_elts(
         for k in range(1, n2):
             elts.add(ctx.galois_elt_from_step(-k * n1))
     return sorted(elts)
-
-
-def _take_rows(x: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
-    """out[j] = x[j][..., srcs[j]] for x [J, ..., N] and srcs [J, N]."""
-    idx = srcs.reshape(srcs.shape[0], *([1] * (x.dim() - 2)), srcs.shape[-1])
-    return torch.gather(x, -1, idx.expand(x.shape))
 
 
 class Transcipher:
@@ -118,8 +112,7 @@ class Transcipher:
         self._build_expand_consts()
         base = (self.rk, self.gk_neg1, self.gk_t, self.gk_cols)
         if self.use_bsgs:
-            base += ((self.baby_k, self.baby_srcs),
-                     (self.giant_k, self.giant_nsrc, self.giant_csrc, self.giant_csign))
+            base += ((self.baby_k, *self._baby_idx), (self.giant_k, *self._giant_idx))
         self._key_bundle = base  # one object: the graphs read the keys by its identity
         if isinstance(ctx, Context):
             def unit(fn, name):
@@ -174,7 +167,10 @@ class Transcipher:
         moduli and P of each key are kept: [k'+1, kd, N].  Each step's k0
         and k1 are held as one [2, steps, k'+1, kd, N] tensor (``baby_k``,
         ``giant_k``; ``baby_k0`` and the like are views of it), so that one
-        K4 launch contracts the digits with both."""
+        K4 launch contracts the digits with both.  The index tables are
+        int32, and the views the gathers and sums read them through
+        (``_baby_idx``, ``_giant_idx``) are made here once: K5 checks an
+        index's range once per tensor."""
         ctx = self.ctx
         dev = ctx.device
 
@@ -190,8 +186,11 @@ class Transcipher:
         ident = np.arange(ctx.n)
         # row 0 = identity: used for the rot_f0 fan-out (j = 0 term included)
         self.baby_srcs = torch.as_tensor(
-            np.stack([ident] + [b[1] for b in baby]), device=dev
+            np.stack([ident] + [b[1] for b in baby]).astype(np.int32), device=dev
         )  # [n1, N]
+        # rot_f0's [n1, 1, N] (over the limbs of f0) and the babystep
+        # results' [1, n1-1, 1, N] (over k0/k1 and q ∪ P)
+        self._baby_idx = (self.baby_srcs[:, None, :], self.baby_srcs[None, 1:, None, :])
         giant = [
             inv_permuted(ctx.galois_elt_from_step(-k * self.n1))
             for k in range(1, self.n2)
@@ -199,15 +198,19 @@ class Transcipher:
         if not giant:  # n2 = 1: no giantsteps
             self.giant_k = self.giant_k0 = self.giant_k1 = None
             self.giant_nsrc = self.giant_csrc = self.giant_csign = None
+            self._giant_idx = ()
             return
         self.giant_k = torch.stack([g[0] for g in giant], dim=1)  # [2, n2-1, k+1, kd, N]
         self.giant_k0, self.giant_k1 = self.giant_k
-        self.giant_nsrc = torch.as_tensor(np.stack([g[1] for g in giant]), device=dev)
+        self.giant_nsrc = torch.as_tensor(np.stack([g[1] for g in giant]).astype(np.int32), device=dev)
         csrc, csign = zip(
             *(ctx.galois_perm(ctx.galois_elt_from_step(-k * self.n1)) for k in range(1, self.n2))
         )
-        self.giant_csrc = torch.as_tensor(np.stack(csrc), device=dev)
+        self.giant_csrc = torch.as_tensor(np.stack(csrc).astype(np.int32), device=dev)
         self.giant_csign = torch.as_tensor(np.stack(csign), device=dev)
+        # the contraction results' [1, n2-1, 1, N]; inner_g's [n2-1, 1, N] and its signs
+        self._giant_idx = (self.giant_nsrc[None, :, None, :], self.giant_csrc[:, None, :],
+                           self.giant_csign[:, None, :])
 
     # ------------------------------------------------------------------
     # Key encryption
@@ -375,9 +378,8 @@ class Transcipher:
     # ------------------------------------------------------------------
 
     def _keys(self):
-        """(rk, gk_neg1, gk_t, gk_cols[, (baby_k, baby_srcs), (giant_k,
-        giant_nsrc, giant_csrc, giant_csign)]): the same tuple on every
-        call."""
+        """(rk, gk_neg1, gk_t, gk_cols[, (baby_k, *_baby_idx), (giant_k,
+        *_giant_idx)]): the same tuple on every call."""
         return self._key_bundle
 
     def round_mats(self, mats, r: int):
@@ -402,7 +404,7 @@ class Transcipher:
         ctx = self.ctx
         gk_neg1, gk_t = keys[1], keys[2]
         if self.g_t is not None:
-            st = bfv_eval.add(ctx, st, bfv_eval.apply_galois(ctx, st, self.g_t, gk_t))
+            st = bfv_eval.apply_galois(ctx, st, self.g_t, gk_t, plus=st)
         acc = bfv_eval.multiply_plain(ctx, st, mats[0])
         for diag in mats[1:]:
             st = bfv_eval.apply_galois(ctx, st, self.g_neg1, gk_neg1)
@@ -412,18 +414,22 @@ class Transcipher:
     def _matmul_bsgs(self, st: Ciphertext, mats, keys) -> Ciphertext:
         """Babystep-giantstep matmul with one hoisted digit decomposition per
         matmul, permute-after-contraction babysteps, all babysteps and
-        giantstep groups batched, and lazy mod-down over q ∪ P."""
+        giantstep groups batched, and lazy mod-down over q ∪ P.
+
+        Each NTT-domain permutation is one K5 gather, each giantstep sum one
+        K5 sum over the gathered (and signed) terms, and each mod-down adds
+        what the JAX package adds after it, writing its result in place of
+        the stack (K6): no PyTorch gather, where, stack or add loop."""
         ctx = self.ctx
         n1, n2 = self.n1, self.n2
         mats_q, mats_qp = mats  # [T, k, N], [T, k+1, N]
         gk_t = keys[2]
-        baby_k, baby_srcs = keys[4]
-        giant_k, giant_nsrc, giant_csrc, giant_csign = keys[5]
+        baby_k, rot_idx, h_idx = keys[4]
         q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
         qp, qpi = ctx.tb_qp.q, ctx.tb_qp.qinv_neg
 
         if self.g_t is not None:
-            st = bfv_eval.add(ctx, st, bfv_eval.apply_galois(ctx, st, self.g_t, gk_t))
+            st = bfv_eval.apply_galois(ctx, st, self.g_t, gk_t, plus=st)
 
         f01 = ntt.ntt_fwd(st.data, ctx.tb_q)  # one call for both components
         f0, f1 = f01[0], f01[1]
@@ -431,7 +437,7 @@ class Transcipher:
         fd_t = fd.transpose(-3, -2)  # moduli-major [k+1, kd, N]
 
         # all n1 NTT-domain rotations of f0 at once (row 0 = identity)
-        rot_f0 = f0[:, baby_srcs].transpose(0, 1)  # [n1, k, N]
+        rot_f0 = gather_mod(f0[None], rot_idx)  # [n1, k, N]
 
         qpc, qpic = qp[:, None], qpi[:, None]  # the moduli on axis -3
 
@@ -439,47 +445,40 @@ class Transcipher:
             return mont_mac(fdig_t, ks, qpc, qpic, -2)
 
         b = contract(fd_t, baby_k)  # [2, n1-1, k+1, N]
-        h = _take_rows(b.transpose(0, 1), baby_srcs[1:]).transpose(0, 1)  # H0, H1
+        h = gather_mod(b, h_idx)  # H0, H1
 
         dq = mats_q.reshape(n2, n1, ctx.k, ctx.n)
         dqp = mats_qp.reshape(n2, n1, ctx.k + 1, ctx.n)
 
-        # q-part: acc0q[g] = sum_j rot_f0[j] * Dq[g, j]; raw c1 only at j = 0
-        acc0q = mont_mac(rot_f0[None], dq, q, qi, 1)
-        acc1q = mont_mul(f1[None], dq[:, 0], q, qi)
+        # q-part: acc0q[g] = sum_j rot_f0[j] * Dq[g, j]; raw c1 only at j = 0;
+        # both written into one [2, n2, k, N] tensor
+        accq = f01.new_empty((2, n2, ctx.k, ctx.n))
+        mont_mac(rot_f0[None], dq, q, qi, 1, out=accq[0])
+        mont_mul(f1[None], dq[:, 0], q, qi, out=accq[1])
 
         # P-part: acc*p[g] = sum_{j>=1} H*[j] * Dqp[g, j], lazily over q ∪ P
         accp = mont_mac(h[:, None], dqp[:, 1:], qp, qpi, 2)  # [2, n2, k+1, N]
 
-        iq = ntt.ntt_inv(torch.stack([acc0q, acc1q]), ctx.tb_q)  # [2, n2, k, N]
-        ip = bfv_eval.mod_down(ctx, ntt.ntt_inv(accp, ctx.tb_qp))
-        i0 = add_mod(iq[0], ip[0], q)  # [n2, k, N]
-        i1 = add_mod(iq[1], ip[1], q)
+        # inner[c, g] = iq[c, g] + mod_down(ip)[c, g], one launch
+        inner = bfv_eval.mod_down(ctx, ntt.ntt_inv(accp, ctx.tb_qp), (ntt.ntt_inv(accq, ctx.tb_q),))
         if n2 == 1:
-            return Ciphertext(torch.stack([i0[0], i1[0]]))
+            return Ciphertext(inner[:, 0])
 
         # giantsteps: out = inner_0 + sum_g sigma_{-g*n1}(inner_g)
-        p0 = _take_rows(i0[1:], giant_csrc)
-        p0 = torch.where(giant_csign[:, None, :], neg_mod(p0, q), p0)
-        out0 = i0[0]
-        for g in range(n2 - 1):
-            out0 = add_mod(out0, p0[g], q)
+        nsrc_idx, csrc_idx, csign_idx = keys[5][1:]
+        p0 = sum_mod(inner[0, 1:], q, 0, csrc_idx, csign_idx)  # [k, N]
 
-        fdg = bfv_eval.hoist_digits(ctx, i1[1:])  # [n2-1, kd, k+1, N]
-        g01 = contract(fdg.transpose(-3, -2), giant_k)  # [2, n2-1, k+1, N]
-        hg0, hg1 = _take_rows(g01.transpose(0, 1), giant_nsrc).transpose(0, 1)
-        accp0, accp1 = hg0[0], hg1[0]
-        for g in range(1, n2 - 1):
-            accp0 = add_mod(accp0, hg0[g], qp)
-            accp1 = add_mod(accp1, hg1[g], qp)
-        out0 = add_mod(out0, bfv_eval.mod_down(ctx, ntt.ntt_inv(accp0, ctx.tb_qp)), q)
-        out1 = add_mod(i1[0], bfv_eval.mod_down(ctx, ntt.ntt_inv(accp1, ctx.tb_qp)), q)
-        return Ciphertext(torch.stack([out0, out1]))
+        fdg = bfv_eval.hoist_digits(ctx, inner[1, 1:])  # [n2-1, kd, k+1, N]
+        g01 = contract(fdg.transpose(-3, -2), keys[5][0])  # [2, n2-1, k+1, N]
+        accg = sum_mod(g01, qp, 1, nsrc_idx)  # [2, k+1, N]
+        # row 0: inner_0[0] + p0 + mod_down(accg0); row 1: inner_1[0] + mod_down(accg1)
+        return Ciphertext(bfv_eval.mod_down(ctx, ntt.ntt_inv(accg, ctx.tb_qp),
+                                            (p0[None], inner[:, 0])))
 
     def _mix(self, st: Ciphertext, keys) -> Ciphertext:
         """(2 1; 1 2) over the two rows (rotate_columns + adds)."""
         ctx = self.ctx
-        tmp = bfv_eval.add(ctx, bfv_eval.apply_galois(ctx, st, self.g_cols, keys[3]), st)
+        tmp = bfv_eval.apply_galois(ctx, st, self.g_cols, keys[3], plus=st)
         return bfv_eval.add(ctx, st, tmp)
 
     def _sbox_feistel(self, st: Ciphertext, keys) -> Ciphertext:
@@ -487,8 +486,7 @@ class Transcipher:
         ctx = self.ctx
         rot = bfv_eval.apply_galois(ctx, st, self.g_neg1, keys[1])
         rot = bfv_eval.multiply_plain(ctx, rot, self.feistel_mask)
-        rot = bfv_eval.relinearize(ctx, bfv_eval.square(ctx, rot), keys[0])
-        return bfv_eval.add(ctx, st, rot)
+        return bfv_eval.relinearize(ctx, bfv_eval.square(ctx, rot), keys[0], plus=st)
 
     def _finish_impl(self, ks_data: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
         """Negate the keystream and add the symmetric-ciphertext chunk.

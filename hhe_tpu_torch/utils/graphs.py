@@ -65,7 +65,7 @@ from ..ops import mod_kernels, ntt_kernels
 MAX_ENTRIES = 8  # layouts kept per callable
 # the counts a replay credits, as the wrappers would have counted its launches
 COUNTERS: List[dict] = [ntt_kernels.LAUNCHES, mod_kernels.LAUNCHES, mod_kernels.FORM_LAUNCHES,
-                        mod_kernels.OP_LAUNCHES]
+                        mod_kernels.OP_LAUNCHES, mod_kernels.DOWN_LAUNCHES]
 REPLAYS: Dict[str, int] = collections.Counter()  # by unit name
 CAPTURES: Dict[str, int] = collections.Counter()
 

@@ -105,7 +105,7 @@ def case(name, rng):
         return "sub", residues(rng, (K, K + 1, N), qp), residues(rng, (K, K + 1, N), qp), qp
     if name == "neg":  # bfv_eval.negate / apply_galois: [2, k, N]
         return "neg", residues(rng, (2, K, N), q), None, q
-    if name == "neg view":  # the giantsteps' neg of _take_rows' rows [n2-1, k, N]
+    if name == "neg view":  # rows [1:] of a [n2, k, N] tensor, a view
         return "neg", residues(rng, (4, K, N), q)[1:], None, q
     if name == "reduce digits":  # _digits: poly[..., s:e, None, :] against q and P [k+1, 1]
         return "reduce", residues(rng, (2, K, N), q)[..., :, None, :], None, qp
@@ -319,14 +319,16 @@ def test_down_plan_replays_plain(ctxs, name):
 
 def test_down_plan_splits_limbs_for_few_rows(ctxs):
     """One ciphertext's mod-down at N = 16384 gives 2 rows of 16384 words:
-    64-thread blocks and the limbs split over the grid's third axis to reach
-    MIN_BLOCKS; a batch of 64 needs neither."""
+    64-thread blocks and the limbs split over the grid's third axis, one
+    limb a block (128 blocks of words, FILL_BLOCKS to fill the card); a
+    batch of 64 needs neither."""
     ctx = ctxs[1]
     ec = tev.eval_consts(ctx)
     cols = (ec.q, ec.qi, ec.p_mod_q, ec.p_inv_mont)
     one = torch.zeros((2, ctx.k + 1, 16384), dtype=torch.int32)
     p = mod_kernels.down_plan(one, *cols, ec.p_half)
-    assert p.threads == 64 and p.zsplit == 3 and p.lead_sizes[-1] == 2
+    assert p.threads == 64 and p.zsplit == ctx.k and p.lead_sizes[-1] == 2
+    assert 128 * p.zsplit <= mod_kernels.FILL_BLOCKS
     big = torch.zeros((2, 64, ctx.k + 1, 16384), dtype=torch.int32)
     p = mod_kernels.down_plan(big, *cols, ec.p_half)
     assert p.threads == 256 and p.zsplit == 1 and p.lead_sizes[-1] == 128
@@ -462,7 +464,11 @@ def test_mod_down_wrapper_refuses(ctxs, what):
 # Every operand of every site on the test stacks lies in [0, 2^31)
 # ---------------------------------------------------------------------------
 
-SITE_FUNCS = ("add_mod", "sub_mod", "neg_mod", "reduce_u32", "mod_down")
+SITE_FUNCS = ("add_mod", "sub_mod", "neg_mod", "reduce_u32", "mod_down", "gather_mod", "sum_mod",
+              "center_lift")
+# where each function lives, and the position of q among its arguments
+# for the "below q" check (of the operands a signed read negates)
+SITE_HOME = {"reduce_u32": "rns", "center_lift": "rns", "mod_down": "tev"}
 
 
 def _site():
@@ -479,8 +485,9 @@ def _site():
 def site_operands():
     """{site: [(function, min, max, dtypes, below q)]} of every call of the
     functions K5 / K6 take on the card (below q: for sub_mod and neg_mod,
-    whether each tensor operand lies below its row's q; else None), over
-    the port's paths on a (2048, 4) stack:
+    whether each tensor operand lies below its row's q; for a signed
+    gather_mod / sum_mod, whether a does; for mod_down, whether each addend
+    does; else None), over the port's paths on a (2048, 4) stack:
     device-form keygen, decompose (keystream, finish), the ECG FC with its
     sum, a 2FC chunk (its logits' tree), a multi-class FC with its bias,
     decrypt."""
@@ -491,21 +498,28 @@ def site_operands():
     mp = pytest.MonkeyPatch()
     mods = [tmod, rns, tev, transcipher, wk, tbfv, helin]
     for fname in SITE_FUNCS:
-        orig = getattr(tev if fname == "mod_down" else (rns if fname == "reduce_u32" else tmod), fname)
+        orig = getattr({"rns": rns, "tev": tev}.get(SITE_HOME.get(fname), tmod), fname)
 
-        def rec(*args, _orig=orig, _fname=fname):
-            ts = [x for x in args if isinstance(x, torch.Tensor)]
+        def rec(*args, _orig=orig, _fname=fname, **kw):
+            ts = [x for x in args if isinstance(x, torch.Tensor) and x.dtype != torch.bool]
+            adds = [mod_kernels.addend(x).x for x in kw.get("adds", ())]
             if _fname == "mod_down":
-                ts = [args[1]]
+                ts = [args[1]] + adds
             ints = [int(x) for x in args if isinstance(x, int) and not isinstance(x, bool)]
             below = None
             if _fname in ("sub_mod", "neg_mod"):
                 *xs, q = args
                 below = all(bool(torch.lt(x, q).all()) for x in xs if isinstance(x, torch.Tensor))
+            elif _fname in ("gather_mod", "sum_mod") and len(args) > 3 and args[-1] is not None:
+                a, q = args[0], args[2 if _fname == "gather_mod" else 1]
+                below = bool(torch.lt(a, q).all())
+            elif _fname == "mod_down" and adds:
+                q = tev.eval_consts(args[0]).q
+                below = all(bool(torch.lt(x, q).all()) for x in adds)
             seen[_site()].append((_fname, min([int(t.min()) for t in ts if t.numel()] + ints),
                                   max([int(t.max()) for t in ts if t.numel()] + ints),
                                   tuple(str(t.dtype) for t in ts), below))
-            return _orig(*args)
+            return _orig(*args, **kw)
 
         for mod in mods:
             if getattr(mod, fname, None) is orig:
@@ -554,11 +568,15 @@ def test_sub_neg_operands_below_q(site_operands):
     """On the test stacks sub_mod's a and b and neg_mod's a lie below their
     row's q at every site: there K5's u32 a + q - b and q - a equal the plain
     versions' int64 results (for b > a + q or a > q the plain versions go
-    negative where K5 wraps mod 2^32, so [0, 2^31) alone is not enough)."""
-    below = {site: [b for fn, *_, b in calls if fn in ("sub_mod", "neg_mod")]
+    negative where K5 wraps mod 2^32, so [0, 2^31) alone is not enough);
+    so do the operands a signed gather or sum negates and K6's addends
+    (added as add_mod adds)."""
+    fns = ("sub_mod", "neg_mod", "gather_mod", "sum_mod", "mod_down")
+    below = {site: [b for fn, *_, b in calls if fn in fns and b is not None]
              for site, calls in site_operands.items()}
     below = {site: flags for site, flags in below.items() if flags}
     assert {fn for calls in site_operands.values() for fn, *_ in calls} >= {"sub_mod", "neg_mod"}
+    assert sum(map(len, below.values())) > 0
     assert all(all(flags) for flags in below.values()), \
         {site: flags.count(False) for site, flags in below.items() if not all(flags)}
 

@@ -103,7 +103,7 @@ def case(name, rng):
     if name == "bsgs_giant_pair":  # H0/H1 [2, 1, n1-1, k+1, N] x a view [n2, 1:, k+1, N], reduce 2
         q, qi = column(moduli(kp))
         dqp = residues(rng, (3, 4, kp, N), q)
-        h = residues(rng, (3, 2, kp, N), q).transpose(0, 1)  # as _take_rows leaves it
+        h = residues(rng, (3, 2, kp, N), q).transpose(0, 1)  # a transposed view
         return h[:, None], dqp[:, 1:], q, qi, 2, False
     if name in ("bsgs_plain_q", "bsgs_plain_q32"):  # [1, n1, k, N] x [n2, n1, k, N], reduce 1
         q, qi = column(moduli(K))

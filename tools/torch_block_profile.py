@@ -21,6 +21,15 @@ device keygen, seed 1).  Measured, each synchronised:
   parties' path (``CSP._eval_one``: multiply, relinearize and the log-depth
   vector sum, 13 rotations at N=16384), and its kernels, busy ms and
   families under the profiler;
+- ``block_graph_ms`` and ``ct_graph_ms``: the same two replayed as
+  ``utils.graphs`` units (the block through ``Transcipher._jit_keystream``,
+  the ciphertext through a unit of ``CSP._jit_eval``'s body), least wall
+  time, each with its profile (``block_graph_profile``,
+  ``ct_graph_profile``: the replay's kernels, busy ms and families);
+- ``decompose_ms``: the least wall time of ``csp_decompose`` on B=64
+  random ECG-width samples (128 words) with a fresh nonce a rep (PASTA
+  encryption outside), as ``chip_smoke.py`` times it, and
+  ``block_rcs_ms``, the host's round constants of a fresh block inside it;
 - ``host_us_per_call``: the host's time to dispatch one call (a loop of CALLS
   calls, unsynchronised, the least of REPS loops) of ``modular.add_mod`` on
   one ciphertext's [13, N] rows, ``bfv_eval._digits`` of its 13 limbs to
@@ -117,6 +126,44 @@ def main():
     ct_ms = least_ms(eval_one)
     ct_prof = profiled(eval_one)
 
+    from hhe_tpu_torch.utils import graphs
+
+    def block_graph():
+        return tc._jit_keystream(enc_key.data, mats_qp, rcs_pt, keys)
+
+    def ct_body(dd, w, rk, gks):
+        prod = bfv_eval.relinearize(ctx, bfv_eval.multiply(ctx, bfv.Ciphertext(dd), w), rk)
+        return helin.encrypted_vec_sum_log(ctx, prod, gks).data
+
+    ct_unit = graphs.jit(ct_body, "csp_eval", ctx)
+
+    def ct_graph():
+        return ct_unit(ct.data, wct, stack.rk, stack.gks)
+
+    replayed = {}
+    for name, fn in (("block", block_graph), ("ct", ct_graph)):
+        fn()
+        fn()
+        replayed[name] = (least_ms(fn), profiled(fn))
+
+    cipher = pasta.Pasta(pasta.get_fixed_symmetric_key(), ctx.t)
+    x = rng.integers(0, 1 << 10, (64, 128)).astype(np.uint64)
+    nonces = iter(range(60_000, 60_100))
+
+    def fresh(fn):
+        nonce = next(nonces)
+        sym = cipher.encrypt(x, nonce=nonce)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(sym, nonce)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    fresh(lambda sym, nonce: wk.csp_decompose(stack, enc_key, sym, nonce=nonce))
+    decompose_ms = min(fresh(lambda sym, nonce: wk.csp_decompose(stack, enc_key, sym, nonce=nonce))
+                       for _ in range(REPS))
+    rcs_ms = min(fresh(lambda sym, nonce: tc.block_rcs(nonce, 0)) for _ in range(REPS))
+
     q = ctx.tb_q.q
     row = ct.data[0]  # [13, N]
     poly_qp = torch.cat([row, row[:1]])  # [14, N]: a coefficient row over q and P
@@ -141,6 +188,10 @@ def main():
         "setup_s": setup_s, "block_ms": block_ms, "block_profile": prof,
         "busy_share_of_block_ms": prof["busy_ms"] / block_ms,
         "ct_eval_ms": ct_ms, "ct_eval_profile": {k: ct_prof[k] for k in ("kernels", "busy_ms", "by_family")},
+        **{f"{name}_graph_ms": ms for name, (ms, _) in replayed.items()},
+        "decompose_ms": decompose_ms, "block_rcs_ms": rcs_ms,
+        **{f"{name}_graph_profile": {k: p[k] for k in ("kernels", "busy_ms", "by_family")}
+           for name, (_, p) in replayed.items()},
         "host_us_per_call": host_us,
     }
     line = json.dumps(out)
