@@ -22,6 +22,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import modular, ntt, primes, rns
 
 I64 = torch.int64
@@ -244,12 +245,14 @@ class Context:
         return Plaintext(poly.astype(np.uint64))
 
     def encode_batch(self, values: np.ndarray) -> np.ndarray:
-        """[B, L<=N] slot values -> [B, N] plaintext polys."""
-        v = np.asarray(values, np.int64) % self.t
-        b, l = v.shape
-        slots = np.zeros((b, self.n), np.uint64)
-        slots[:, self.encoder_map[:l]] = v.astype(np.uint64)
-        return ntt.ntt_inv_host(slots, self.tb_t_host).astype(np.uint64)
+        """[B, L<=N] slot values -> [B, N] plaintext polys (the span
+        ``hhe.bfv.encode``)."""
+        with trace.span("hhe.bfv.encode"):
+            v = np.asarray(values, np.int64) % self.t
+            b, l = v.shape
+            slots = np.zeros((b, self.n), np.uint64)
+            slots[:, self.encoder_map[:l]] = v.astype(np.uint64)
+            return ntt.ntt_inv_host(slots, self.tb_t_host).astype(np.uint64)
 
     def decode(self, pt: Plaintext) -> np.ndarray:
         slots = ntt.ntt_fwd_host(np.asarray(pt.data, np.uint64), self.tb_t_host)
@@ -502,19 +505,20 @@ class Context:
     def _scale(self, polys) -> np.ndarray:
         """round(Q * m / t) in RNS for plaintext polys [..., N] mod t:
         u64 [..., k, N]; exact Python integers when t >= 2^32, where
-        (Q mod t) * m outgrows uint64."""
-        if self.t >= (1 << 32):
-            m = np.asarray(polys, object)
-            prod = int(self.q_mod_t) * m
-            fix = (prod + (self.t + 1) // 2) // self.t
-        else:
-            m = np.asarray(polys, np.uint64)
-            prod = (self.q_mod_t * m).astype(np.uint64)
-            fix = (prod + np.uint64((self.t + 1) // 2)) // np.uint64(self.t)
-        out = np.empty(m.shape[:-1] + (self.k, self.n), np.uint64)
-        for i, q in enumerate(self.q_moduli):
-            out[..., i, :] = ((self.delta_mod_q[i] * (m % q) + fix) % q).astype(np.uint64)
-        return out
+        (Q mod t) * m outgrows uint64.  The span ``hhe.bfv.scale``."""
+        with trace.span("hhe.bfv.scale"):
+            if self.t >= (1 << 32):
+                m = np.asarray(polys, object)
+                prod = int(self.q_mod_t) * m
+                fix = (prod + (self.t + 1) // 2) // self.t
+            else:
+                m = np.asarray(polys, np.uint64)
+                prod = (self.q_mod_t * m).astype(np.uint64)
+                fix = (prod + np.uint64((self.t + 1) // 2)) // np.uint64(self.t)
+            out = np.empty(m.shape[:-1] + (self.k, self.n), np.uint64)
+            for i, q in enumerate(self.q_moduli):
+                out[..., i, :] = ((self.delta_mod_q[i] * (m % q) + fix) % q).astype(np.uint64)
+            return out
 
     def encrypt(self, pk: PublicKey, pt: Plaintext) -> Ciphertext:
         """c = (pk0*u + e0 + round(Q m / t), pk1*u + e1)."""

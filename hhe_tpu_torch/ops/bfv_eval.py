@@ -14,7 +14,11 @@ Plain functions on int32 ``[size, (B,) k, N]`` ciphertext tensors:
   Shenoy-Kumaresan conversion back).
 
 Every polynomial product goes through ``ntt.ntt_fwd`` / ``ntt.ntt_inv``,
-which launch the CUDA kernels for tensors on the card.
+which launch the CUDA kernels for tensors on the card.  ``multiply``,
+``square``, ``relinearize`` and ``apply_galois`` are the spans
+``hhe.eval.multiply`` / ``square`` / ``relinearize`` / ``galois``
+(``utils.trace``): eager calls show in a trace, and inside a graph unit its
+replay's span stands for them.
 
 ``ctx`` is a ``Context`` or a ``parallel.limb_shard.LimbView`` (one rank's
 limbs of a context).  Plaintexts and keys are whole-context; ``ctx.take*``
@@ -31,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import ntt, rns
 from .bfv import Ciphertext, Context, KSwitchKey
 from .mod_kernels import Addend, addend
@@ -311,9 +316,10 @@ def apply_galois(ctx: Context, ct: Ciphertext, g: int, gk: KSwitchKey,
     launch (K6)."""
     if ct.size != 2:
         raise ValueError("relinearize before rotating")
-    src, sign = ctx.galois_perm_device(g)
-    acc = keyswitch_products(ctx, gather_mod(ct.data[1], src, ctx.tb_q.q, sign), gk)
-    return Ciphertext(mod_down(ctx, acc, (Addend(ct.data[:1], src, sign),) + _plus(plus)))
+    with trace.span("hhe.eval.galois"):
+        src, sign = ctx.galois_perm_device(g)
+        acc = keyswitch_products(ctx, gather_mod(ct.data[1], src, ctx.tb_q.q, sign), gk)
+        return Ciphertext(mod_down(ctx, acc, (Addend(ct.data[:1], src, sign),) + _plus(plus)))
 
 
 def rotate_rows(ctx: Context, ct: Ciphertext, step: int, gks: Dict[int, KSwitchKey],
@@ -341,8 +347,9 @@ def relinearize(
     d0 and d1 in the mod-down's launch."""
     if ct.size != 3:
         raise ValueError(f"relinearize needs a size-3 ciphertext, got {ct.size}")
-    acc = keyswitch_products(ctx, ct.data[2], rk, digit_chunk=digit_chunk)
-    return Ciphertext(mod_down(ctx, acc, (ct.data[:2],) + _plus(plus)))
+    with trace.span("hhe.eval.relinearize"):
+        acc = keyswitch_products(ctx, ct.data[2], rk, digit_chunk=digit_chunk)
+        return Ciphertext(mod_down(ctx, acc, (ct.data[:2],) + _plus(plus)))
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +418,16 @@ def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     On a view the q half runs on the rank's limbs; the two q -> Bsk
     conversions sum over every q limb, so their operands are gathered and
     the Bsk half is computed whole on every rank."""
+    with trace.span("hhe.eval.multiply"):
+        return _multiply(ctx, a, b)
+
+
+def square(ctx: Context, a: Ciphertext) -> Ciphertext:
+    with trace.span("hhe.eval.square"):
+        return _multiply(ctx, a, a)
+
+
+def _multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     ec = eval_consts(ctx)
     wa = ctx.gather(a.data)
     wb = wa if b.data is a.data else ctx.gather(b.data)
@@ -428,10 +445,6 @@ def multiply(ctx: Context, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     f = rns.fbc_apply(ctx.gather(tx_q), ec.fbc_q_to_bsk)
     y_b = mont_mul(sub_mod(tx_b, f, ec.bq), ec.qinv_bsk_mont, ec.bq, ec.bqi)
     return Ciphertext(_bsk_to_q(ctx, y_b))
-
-
-def square(ctx: Context, a: Ciphertext) -> Ciphertext:
-    return multiply(ctx, a, a)
 
 
 def exponentiate(ctx: Context, a: Ciphertext, e: int, rk: KSwitchKey) -> Ciphertext:

@@ -15,6 +15,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import bfv_eval
 from .bfv import Ciphertext, Context, KSwitchKey, PublicKey, SecretKey
 
@@ -60,9 +61,11 @@ def decrypt_bias(ctx: Context, sk: SecretKey, cts: Sequence[Ciphertext]) -> np.n
 
 
 def make_mask(ctx: Context, num_ones: int) -> torch.Tensor:
-    """plain_for_mul of a [1]*num_ones mask."""
-    vec = np.zeros(num_ones, np.int64) + 1
-    return ctx.plain_for_mul(ctx.encode(vec))
+    """plain_for_mul of a [1]*num_ones mask (the span ``hhe.helin.make_mask``:
+    a host encode and NTT over every limb, and an upload)."""
+    with trace.span("hhe.helin.make_mask"):
+        vec = np.zeros(num_ones, np.int64) + 1
+        return ctx.plain_for_mul(ctx.encode(vec))
 
 
 def mask(ctx: Context, ct: Ciphertext, mask_pt: torch.Tensor) -> Ciphertext:

@@ -13,6 +13,10 @@ do not take), a CPU tensor to the plain PyTorch stage loop below
 ``ntt_inv_top_plain`` are the plain versions of the kernels' top passes for
 rows longer than ``TILE``.  The host numpy NTT at the end serves keygen,
 encrypt, encode and decrypt.
+
+``u32_to_torch`` is the port's funnel from host residues to the device
+(``Context.to_device``); ``upload`` takes any other host array there.
+Both count into ``UPLOADS`` and open the span ``hhe.upload``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import modular, primes
 
 I64 = torch.int64
@@ -66,10 +71,27 @@ def part_index(n: int, parts: int) -> np.ndarray:
     return (parts + p) * hi + (j - hi)
 
 
+# host arrays handed to a device: calls, and bytes of the arrays handed over
+UPLOADS = {"calls": 0, "bytes": 0}
+
+
 def u32_to_torch(a: np.ndarray, device) -> torch.Tensor:
-    """uint32 numpy array -> int32 tensor with the same bits."""
-    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32))
-    return torch.from_numpy(a.view(np.int32)).to(device)
+    """uint32 numpy array -> int32 tensor with the same bits, on ``device``."""
+    with trace.span("hhe.upload"):
+        a = np.ascontiguousarray(np.asarray(a).astype(np.uint32))
+        return _upload(a.view(np.int32), device)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype on ``device``."""
+    with trace.span("hhe.upload"):
+        return _upload(np.ascontiguousarray(a), device)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    UPLOADS["calls"] += 1
+    UPLOADS["bytes"] += a.nbytes
+    return torch.from_numpy(a).to(device)
 
 
 def u32_to_numpy(x) -> np.ndarray:

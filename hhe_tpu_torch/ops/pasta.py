@@ -31,6 +31,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..utils import trace
+
 PASTA_T = 128  # words per block
 PASTA_R = 3  # rounds
 KEY_SIZE = 256
@@ -134,17 +136,19 @@ def block_randomness(
     (pasta_3_seal.cpp:128-147) consumption order.
 
     Takes the native C++ expansion when ``native.available()``, else
-    ``block_randomness_python``; ``EXPANSIONS`` says which ran."""
+    ``block_randomness_python``; ``EXPANSIONS`` says which ran.  A cache
+    miss is the span ``hhe.pasta.shake``."""
     from .. import native
 
-    if not native.available():
-        EXPANSIONS["python"] += 1
-        return block_randomness_python(p, nonce, block_counter)
-    EXPANSIONS["native"] += 1
-    m1, m2, r1, r2 = native.pasta_block_randomness(p, nonce, block_counter)
-    for a in (m1, m2, r1, r2):
-        a.setflags(write=False)
-    return tuple(tuple(a[r] for r in range(PASTA_R + 1)) for a in (m1, m2, r1, r2))
+    with trace.span("hhe.pasta.shake"):
+        if not native.available():
+            EXPANSIONS["python"] += 1
+            return block_randomness_python(p, nonce, block_counter)
+        EXPANSIONS["native"] += 1
+        m1, m2, r1, r2 = native.pasta_block_randomness(p, nonce, block_counter)
+        for a in (m1, m2, r1, r2):
+            a.setflags(write=False)
+        return tuple(tuple(a[r] for r in range(PASTA_R + 1)) for a in (m1, m2, r1, r2))
 
 
 def block_randomness_python(

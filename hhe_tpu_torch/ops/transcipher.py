@@ -39,7 +39,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..utils import graphs
+from ..utils import graphs, trace
 from . import bfv_eval, ntt, pasta, rns
 from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
 from .modular import add_mod, gather_mod, mont_mac, mont_mul, neg_mod, sum_mod, to_mont_host
@@ -305,24 +305,28 @@ class Transcipher:
         return ntt.to_mont(f, tb)
 
     def block_first_rows(self, nonce: int, b: int) -> torch.Tensor:
-        """Host: the tiny SHAKE seed material [8, T] for one block."""
-        mats1, mats2, _, _ = pasta.block_randomness(self.ctx.t, nonce, b)
-        out = np.empty((8, T), np.uint32)
-        for r in range(4):
-            out[2 * r] = mats1[r][0]
-            out[2 * r + 1] = mats2[r][0]
-        return self.ctx.to_device(out)
+        """Host: the tiny SHAKE seed material [8, T] for one block (the span
+        ``hhe.transcipher.first_rows``)."""
+        with trace.span("hhe.transcipher.first_rows"):
+            mats1, mats2, _, _ = pasta.block_randomness(self.ctx.t, nonce, b)
+            out = np.empty((8, T), np.uint32)
+            for r in range(4):
+                out[2 * r] = mats1[r][0]
+                out[2 * r + 1] = mats2[r][0]
+            return self.ctx.to_device(out)
 
     def block_rcs(self, nonce: int, b: int) -> torch.Tensor:
-        """Host: scaled round-constant plaintexts [4, k, N] (small)."""
-        ctx = self.ctx
-        half = ctx.n // 2
-        _, _, rcs1, rcs2 = pasta.block_randomness(ctx.t, nonce, b)
-        rc_vecs = np.zeros((4, half + T), np.uint64)
-        for r in range(4):
-            rc_vecs[r, :T] = rcs1[r]
-            rc_vecs[r, half : half + T] = rcs2[r]
-        return ctx.plain_for_add_batch(ctx.encode_batch(rc_vecs))
+        """Host: scaled round-constant plaintexts [4, k, N] (the span
+        ``hhe.transcipher.round_constants``)."""
+        with trace.span("hhe.transcipher.round_constants"):
+            ctx = self.ctx
+            half = ctx.n // 2
+            _, _, rcs1, rcs2 = pasta.block_randomness(ctx.t, nonce, b)
+            rc_vecs = np.zeros((4, half + T), np.uint64)
+            for r in range(4):
+                rc_vecs[r, :T] = rcs1[r]
+                rc_vecs[r, half : half + T] = rcs2[r]
+            return ctx.plain_for_add_batch(ctx.encode_batch(rc_vecs))
 
     def block_plaintexts(self, nonce: int, b: int):
         """Per-(nonce, block) round material expanded on the host (cached).

@@ -46,6 +46,10 @@ that does this.
 - Routing.  Inputs on the backend's device type (CUDA) take the graph; a
   CPU tensor runs ``fn`` itself and creates no entry.  A capture or replay
   that fails raises: nothing falls back to the eager body on the card.
+- Tracing.  A replay (input copies, replay, output clones) is the span
+  ``hhe.graph.<name>``, a layout's first call and capture
+  ``hhe.graph.capture.<name>`` (``utils.trace``); ``REPLAYED[name]`` sums
+  the launches that replays credit to ``COUNTERS``.
 
 ``BACKEND`` does the capture and the replay; the CPU tests put a stand-in
 there that reruns ``fn`` on the static buffers.
@@ -61,6 +65,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..ops import mod_kernels, ntt_kernels
+from . import trace
 
 MAX_ENTRIES = 8  # layouts kept per callable
 # the counts a replay credits, as the wrappers would have counted its launches
@@ -68,6 +73,7 @@ COUNTERS: List[dict] = [ntt_kernels.LAUNCHES, mod_kernels.LAUNCHES, mod_kernels.
                         mod_kernels.OP_LAUNCHES, mod_kernels.DOWN_LAUNCHES]
 REPLAYS: Dict[str, int] = collections.Counter()  # by unit name
 CAPTURES: Dict[str, int] = collections.Counter()
+REPLAYED: Dict[str, int] = collections.Counter()  # K1-K6 launches credited by replays, by unit name
 
 
 class CudaGraphs:
@@ -150,6 +156,8 @@ class Jit:
         self.owner = owner
         self.entries: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
         self._lock = threading.Lock()
+        self._span = f"hhe.graph.{name}"
+        self._capture_span = f"hhe.graph.capture.{name}"
 
     def __call__(self, *args):
         first = next((a for a in args if isinstance(a, torch.Tensor)), None)
@@ -159,17 +167,20 @@ class Jit:
         with self._lock:
             entry = self.entries.get(key)
             if entry is None:
-                out = self.fn(*args)
-                self._capture(key, args)
+                with trace.span(self._capture_span):
+                    out = self.fn(*args)
+                    self._capture(key, args)
                 return out
-            self.entries.move_to_end(key)
-            for buf, a in zip(entry.static_in, (a for a in args if isinstance(a, torch.Tensor))):
-                buf.copy_(a)
-            BACKEND.replay(entry.graph)
-            _credit(COUNTERS, entry.counted)
-            entry.replays += 1
-            REPLAYS[self.name] += 1
-            outs = tuple(o.clone() for o in entry.static_out)
+            with trace.span(self._span):
+                self.entries.move_to_end(key)
+                for buf, a in zip(entry.static_in, (a for a in args if isinstance(a, torch.Tensor))):
+                    buf.copy_(a)
+                BACKEND.replay(entry.graph)
+                _credit(COUNTERS, entry.counted)
+                entry.replays += 1
+                REPLAYS[self.name] += 1
+                REPLAYED[self.name] += entry.kernels
+                outs = tuple(o.clone() for o in entry.static_out)
         return outs[0] if len(outs) == 1 else outs
 
     def _capture(self, key, args):
@@ -206,3 +217,4 @@ def jit(fn: Callable, name: str, owner) -> Jit:
 def reset_counts():
     REPLAYS.clear()
     CAPTURES.clear()
+    REPLAYED.clear()

@@ -19,7 +19,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 
 from ..ops import bfv
-from . import serial
+from . import serial, trace
 
 MB = 1024.0 * 1024.0
 
@@ -104,19 +104,22 @@ class CommLedger:
 
 
 class Timer:
-    """Accumulating wall-clock timer per phase (reference chrono usage).  A
-    phase that ends in device work should synchronise before it closes."""
+    """Accumulating timer per phase on the monotonic clock (reference chrono
+    usage).  A phase that ends in device work should synchronise before it
+    closes.  Each phase is also the span ``hhe.party.<name>``
+    (``utils.trace``)."""
 
     def __init__(self):
         self.phases: Dict[str, float] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
-            yield
+            with trace.span(f"hhe.party.{name}"):
+                yield
         finally:
-            self.phases[name] = self.phases.get(name, 0.0) + time.time() - t0
+            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
 
     def report_ms(self) -> Dict[str, float]:
         return {k: v * 1e3 for k, v in self.phases.items()}

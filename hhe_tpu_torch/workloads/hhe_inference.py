@@ -30,6 +30,11 @@ batch-decrypts.
 Class- and row-batched passes broadcast a data ciphertext ``[2, B, 1, k, N]``
 against stacked weight ciphertexts ``[2, 1, R, k, N]``; the evaluator works
 on any leading shape.
+
+The CSP's entry functions are the spans ``hhe.csp_decompose``,
+``hhe.csp_eval_1fc`` and ``hhe.csp_eval_2fc`` (``utils.trace``); the 2FC
+pass adds ``hhe.2fc.chunk`` for each row chunk and ``hhe.2fc.fc2_consts``
+for its scalar constants.
 """
 
 from __future__ import annotations
@@ -44,10 +49,10 @@ import numpy as np
 import torch
 
 from ..models import loaders, pocketnn
-from ..ops import bfv, bfv_eval, helin, pasta, transcipher
+from ..ops import bfv, bfv_eval, helin, ntt, pasta, transcipher
 from ..ops.bfv import BFVParams, Ciphertext, Context
 from ..ops.modular import add_mod, mont_mul, neg_mod, tree_add_mod
-from ..utils import checks, graphs, metrics
+from ..utils import checks, graphs, metrics, trace
 from ..utils.config import Config, RunConfig
 
 
@@ -148,16 +153,17 @@ def csp_decompose(
     mesh's limb axis divides k) and the sample batch is split over its
     batch axis (``Transcipher.decompose``); every rank returns the whole
     result."""
-    ctx = stack.ctx
-    sym_data = np.atleast_2d(np.asarray(sym_data, np.uint64))
-    L = sym_data.shape[1]
-    blocks = stack.tc.decompose(enc_key, sym_data, nonce=nonce, mesh=mesh)
-    tail = L % transcipher.T
-    if tail != 0:
-        blocks[-1] = helin.mask(ctx, blocks[-1], helin.make_mask(ctx, tail))
-    if len(blocks) == 1:
-        return blocks[0]
-    return helin.flatten(ctx, blocks, stack.gks, transcipher.T)
+    with trace.span("hhe.csp_decompose"):
+        ctx = stack.ctx
+        sym_data = np.atleast_2d(np.asarray(sym_data, np.uint64))
+        L = sym_data.shape[1]
+        blocks = stack.tc.decompose(enc_key, sym_data, nonce=nonce, mesh=mesh)
+        tail = L % transcipher.T
+        if tail != 0:
+            blocks[-1] = helin.mask(ctx, blocks[-1], helin.make_mask(ctx, tail))
+        if len(blocks) == 1:
+            return blocks[0]
+        return helin.flatten(ctx, blocks, stack.gks, transcipher.T)
 
 
 def csp_eval_1fc(
@@ -177,15 +183,16 @@ def csp_eval_1fc(
     (``mesh.shard_ciphertext_batch``), ``weight_ct`` whole or the rank's
     limbs, and so is the result, which ``gather_limbs`` and ``gather_batch``
     make whole; the analyst decrypts only whole ciphertexts."""
-    if mesh is None:
-        key = f"_jit_1fc_{do_sum}"
-        unit = stack.__dict__.get(key)
-        if unit is None:
-            unit = stack.__dict__[key] = graphs.jit(
-                functools.partial(_fc_body, stack.ctx, do_sum), "eval_1fc", stack.ctx)
-        return Ciphertext(unit(data_ct.data, weight_ct.data, stack.rk, stack.gks))
-    ctx = stack.tc.on_limbs(mesh).ctx
-    return Ciphertext(_fc_body(ctx, do_sum, data_ct.data, weight_ct.data, stack.rk, stack.gks))
+    with trace.span("hhe.csp_eval_1fc"):
+        if mesh is None:
+            key = f"_jit_1fc_{do_sum}"
+            unit = stack.__dict__.get(key)
+            if unit is None:
+                unit = stack.__dict__[key] = graphs.jit(
+                    functools.partial(_fc_body, stack.ctx, do_sum), "eval_1fc", stack.ctx)
+            return Ciphertext(unit(data_ct.data, weight_ct.data, stack.rk, stack.gks))
+        ctx = stack.tc.on_limbs(mesh).ctx
+        return Ciphertext(_fc_body(ctx, do_sum, data_ct.data, weight_ct.data, stack.rk, stack.gks))
 
 
 def _fc_body(ctx, do_sum: bool, dd: torch.Tensor, wd: torch.Tensor, rk, gks) -> torch.Tensor:
@@ -363,12 +370,12 @@ def _fc2_scalar_consts(ctx: Context, w2: np.ndarray) -> Tuple[torch.Tensor, torc
     """Montgomery |w2| per limb [R, C, k, 1] and sign mask [R, C, 1, 1] for
     the small-norm fc2, on the context's device (the JAX package's per-entry
     ``to_mont_host`` loop, vectorised)."""
-    w2 = np.asarray(w2, np.int64)
-    q = np.asarray(ctx.q_moduli, np.uint64)
-    a = np.abs(w2).astype(np.uint64)[:, :, None] % q  # [R, C, k]
-    mont = ((a << np.uint64(32)) % q).astype(np.int64)[..., None]
-    dev = ctx.device
-    return torch.from_numpy(mont).to(dev), torch.from_numpy((w2 < 0)[:, :, None, None]).to(dev)
+    with trace.span("hhe.2fc.fc2_consts"):
+        w2 = np.asarray(w2, np.int64)
+        q = np.asarray(ctx.q_moduli, np.uint64)
+        a = np.abs(w2).astype(np.uint64)[:, :, None] % q  # [R, C, k]
+        mont = ((a << np.uint64(32)) % q).astype(np.int64)[..., None]
+        return ntt.upload(mont, ctx.device), ntt.upload((w2 < 0)[:, :, None, None], ctx.device)
 
 
 def _2fc_chunk(
@@ -431,21 +438,23 @@ def csp_eval_2fc(
     every slot of class-ct c.  ``row_chunk`` bounds device memory: the R
     rows go ``row_chunk`` at a time and the partial logits are added
     (bit-identical to one pass)."""
-    ctx = stack.ctx
-    w2 = np.asarray(w2, np.int64)
-    dd = data_ct.data
-    batched = dd.dim() == 4
-    if not batched:
-        dd = dd[:, None]  # [2, 1, k, N]
-    rows = len(w1_cts)
-    chunk = row_chunk if (row_chunk is not None and row_chunk < rows) else rows
-    acc = None
-    for s in range(0, rows, chunk):
-        wstack = torch.stack([w.data for w in w1_cts[s : s + chunk]], dim=1)
-        w2_mont, w2_neg = _fc2_scalar_consts(ctx, w2[s : s + chunk])
-        part = _2fc_chunk(stack, dd, wstack, w2_mont, w2_neg, digit_chunk)
-        acc = part if acc is None else bfv_eval.add(ctx, Ciphertext(acc), Ciphertext(part)).data
-    return Ciphertext(acc if batched else acc[:, 0])
+    with trace.span("hhe.csp_eval_2fc"):
+        ctx = stack.ctx
+        w2 = np.asarray(w2, np.int64)
+        dd = data_ct.data
+        batched = dd.dim() == 4
+        if not batched:
+            dd = dd[:, None]  # [2, 1, k, N]
+        rows = len(w1_cts)
+        chunk = row_chunk if (row_chunk is not None and row_chunk < rows) else rows
+        acc = None
+        for s in range(0, rows, chunk):
+            with trace.span("hhe.2fc.chunk"):
+                wstack = torch.stack([w.data for w in w1_cts[s : s + chunk]], dim=1)
+                w2_mont, w2_neg = _fc2_scalar_consts(ctx, w2[s : s + chunk])
+                part = _2fc_chunk(stack, dd, wstack, w2_mont, w2_neg, digit_chunk)
+                acc = part if acc is None else bfv_eval.add(ctx, Ciphertext(acc), Ciphertext(part)).data
+        return Ciphertext(acc if batched else acc[:, 0])
 
 
 def decrypt_2fc_logits(stack: HHEStack, logits_ct: Ciphertext) -> np.ndarray:
