@@ -1777,12 +1777,17 @@ def phase_main_path():
     stats["first_run_graphs"] = graph_counts("first run")
     stack.tc.clear_caches()
     reset_launches()
+    rc_before = dict(transcipher.RC_BLOCKS)
     with ShapeRecorder() as rec:
         t0 = time.perf_counter()
         out2 = wk.hhe_ecg_inference(stack, w, x)
         torch.cuda.synchronize()
         stats["ecg_inference_replayed_s"] = time.perf_counter() - t0
     launches = launch_counts()
+    stats["rc_blocks"] = {k: v - rc_before[k] for k, v in transcipher.RC_BLOCKS.items()}
+    if stats["rc_blocks"]["host"] or not stats["rc_blocks"]["device"]:
+        raise AssertionError(f"round constants made on the host on the main path: "
+                             f"{stats['rc_blocks']}")
     stats["graphs"] = graph_counts("ecg")
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path: hhe_ecg_inference B={B} in {stats['ecg_inference_s']:.2f} s (bodies and "
@@ -1845,22 +1850,25 @@ def phase_main_path():
                                         for _ in range(REPS))
     stats["block_graph_device_ms"] = cuda_ms(lambda: tc._jit_keystream(*block), REPS)
     stats["expand_ms"] = 1e3 * min(
-        wall_s(lambda: tc._jit_expand(tc.block_first_rows(nonce, 0))) for _ in range(REPS)
+        wall_s(lambda: tc._jit_expand(tc.block_words(nonce, [0])[0])) for _ in range(REPS)
     )
     stats["expand_eager_ms"] = 1e3 * min(
-        wall_s(lambda: tc._expand_round_mats(tc.block_first_rows(nonce, 0)))
-        for _ in range(REPS)
+        wall_s(lambda: tc._expand_impl(tc.block_words(nonce, [0])[0])) for _ in range(REPS)
     )
     # the host's share of a decompose outside the units, for a fresh nonce:
-    # a block's first rows (the SHAKE expansion, then cached) and its round
-    # constants (host encode and scaling, upload)
+    # a block's SHAKE words (the SHAKE expansion, then cached, and one
+    # upload), and beside it the host's own round constants (encode,
+    # scaling, upload; off the main path)
     host = []
     for _ in range(REPS):
         nonce += 1
-        host.append((wall_s(lambda: tc.block_first_rows(nonce, 0)),
+        host.append((wall_s(lambda: tc.block_words(nonce, [0])),
                      wall_s(lambda: tc.block_rcs(nonce, 0))))
-    stats["block_first_rows_ms"] = 1e3 * min(h[0] for h in host)
+    stats["block_words_ms"] = 1e3 * min(h[0] for h in host)
     stats["block_rcs_ms"] = 1e3 * min(h[1] for h in host)
+    if not torch.equal(tc._round_constants(tc.block_words(nonce, [0])[0, 8:]),
+                       tc.block_rcs(nonce, 0)):
+        raise AssertionError("the card's round constants differ from the host's block_rcs")
     data_ct = out["data_ct"]
     wct = bfv.Ciphertext(helin_weight(stack, w).data[:, None])
     stats["csp_eval_1fc_ms"] = 1e3 * min(
@@ -2983,15 +2991,14 @@ def phase_graphs(stack, batch, with_eval=True) -> dict:
     enc_key = tc.encrypt_key(stack.pk, pasta.get_fixed_symmetric_key())
     keys = tc._keys()
     rng = np.random.default_rng(16)
-    rows = [tc.block_first_rows(70_000 + i, 0) for i in range(2)]
-    rcs = [tc.block_rcs(70_000 + i, 0) for i in range(2)]
-    mats = [tc._expand_round_mats(r) for r in rows]
+    words = [tc.block_words(70_000 + i, [0])[0] for i in range(2)]
+    mats, rcs = zip(*(tc._expand_impl(w) for w in words))
     kss = [tc._keystream_impl(enc_key.data, m, r, keys) for m, r in zip(mats, rcs)]
     chunks = [ctx.to_device(rng.integers(0, ctx.t, (batch, transcipher.T)).astype(np.uint64))
               for _ in range(2)]
-    cases = [(tc._jit_expand, [(r,) for r in rows]),
+    cases = [(tc._jit_expand, [(w,) for w in words]),
              (tc._jit_keystream, [(enc_key.data, m, r, keys) for m, r in zip(mats, rcs)]),
-             (tc._jit_keystream_seeded, [(enc_key.data, ro, r, keys) for ro, r in zip(rows, rcs)]),
+             (tc._jit_keystream_seeded, [(enc_key.data, w, keys) for w in words]),
              (tc._jit_finish, list(zip(kss, chunks)))]
     if with_eval:
         data = [tc._finish_impl(k, c) for k, c in zip(kss, chunks)]
@@ -3015,8 +3022,8 @@ def eager_decompose(tc, enc_key, sym, nonce):
     unit has a graph)."""
     from hhe_tpu_torch.ops import transcipher
 
-    mats = tc._expand_round_mats(tc.block_first_rows(nonce, 0))
-    ks = tc._keystream_impl(enc_key.data, mats, tc.block_rcs(nonce, 0), tc._keys())
+    mats, rcs = tc._expand_impl(tc.block_words(nonce, [0])[0])
+    ks = tc._keystream_impl(enc_key.data, mats, rcs, tc._keys())
     chunk = np.asarray(sym, np.uint64)[:, : transcipher.T]
     return tc._finish_impl(ks, tc.ctx.to_device(chunk))
 

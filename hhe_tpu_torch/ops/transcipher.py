@@ -3,10 +3,13 @@
 Evaluates PASTA-3 decryption under BFV on the HE-encrypted symmetric key,
 turning PASTA ciphertexts into BFV ciphertexts ("decomposition").
 
-- Only the SHAKE first rows of the round matrices (4 x 2 x 128 words) cross
-  from the host; the row recurrence, diagonal extraction, BSGS pre-rotation,
-  slot encoding and NTT lifting to q ∪ P run on the context's device
-  (``_expand_round_mats``).
+- Only SHAKE words cross from the host: each block's first rows of the
+  round matrices and its round-constant words, 2 x 4 x 2 x 128 words, all
+  of a request's blocks in one upload (``block_words``).  The row
+  recurrence, diagonal extraction, BSGS pre-rotation, slot encoding and NTT
+  lifting to q ∪ P (``_expand_round_mats``) and the round constants' slot
+  encoding and round(Q m / t) scaling (``_round_constants``) run on the
+  context's device.
 - The keystream ciphertext depends only on (key, nonce, block), so it is
   computed once and cached; decomposing a batch of B samples is then one
   batched negate + encode + add (``_finish_impl``).
@@ -45,6 +48,8 @@ from .bfv import Ciphertext, Context, KSwitchKey, PublicKey
 from .modular import add_mod, gather_mod, mont_mac, mont_mul, neg_mod, sum_mod, to_mont_host
 
 T = pasta.PASTA_T
+# each block's round constants by where they were made
+RC_BLOCKS = {"device": 0, "host": 0}
 # BSGS split of the 128 diagonals: n1 babysteps x n2 giantsteps.  Any split
 # with n1 * n2 = 128 is bit-equivalent; this is the JAX package's default.
 BSGS_N1 = 32
@@ -122,7 +127,7 @@ class Transcipher:
                 return fn
         self._jit_keystream = unit(self._keystream_impl, "keystream")
         self._jit_keystream_seeded = unit(self._keystream_seeded_impl, "keystream_seeded")
-        self._jit_expand = unit(self._expand_round_mats, "expand")
+        self._jit_expand = unit(self._expand_impl, "expand")
         self._jit_finish = unit(self._finish_impl, "finish")
 
     def _cache_put(self, cache, maxsize, key, value):
@@ -246,11 +251,13 @@ class Transcipher:
         inv_map = np.empty(n, np.int64)
         inv_map[ctx.encoder_map] = np.arange(n)
         self._enc_inv_map = torch.as_tensor(inv_map, device=dev)
-        self._tb_t = ntt.build_tables((ctx.t,), n, dev)
-        # add_plain scaling constants of the finish: round(Q m / t) mod q_i
-        # = delta_i * m + fix with fix = floor((r m + h) / t), r = Q mod t,
-        # h = (t+1)/2
+        self._tb_t = ntt.build_tables((ctx.t,), n, dev)  # t below 2^31
+        # plain-add scaling constants: round(Q m / t) mod q_i = delta_i * m +
+        # fix with fix = floor((r m + h) / t), r = Q mod t, h = (t+1)/2; one
+        # conditional subtract reduces fix < t mod q_i while t <= 2 q_i
         t = int(ctx.t)
+        if t > 2 * min(int(q) for q in ctx.q_moduli):
+            raise ValueError(f"t = {t} exceeds twice the smallest q_i")
         self._fin_r = int(ctx.q_mod_t) % t
         self._fin_h = (t + 1) // 2
         self._fin_delta_mont = torch.tensor(
@@ -304,21 +311,68 @@ class Transcipher:
         f = ntt.ntt_fwd(rns.reduce_u32(poly[..., None, :], tb.q), tb)
         return ntt.to_mont(f, tb)
 
-    def block_first_rows(self, nonce: int, b: int) -> torch.Tensor:
-        """Host: the tiny SHAKE seed material [8, T] for one block (the span
-        ``hhe.transcipher.first_rows``)."""
+    def _encode_scaled(self, slots: torch.Tensor) -> torch.Tensor:
+        """Slot vectors int32 [B, N] (values mod t) -> their plaintexts m
+        scaled for a plain add, round(Q m / t) mod q_i: [B, k, N].
+
+        Encodes on the device (the encoder's inverse map, then K2 at t) and
+        computes delta_i m + fix; fix = floor((r m + h) / t) < t is exact
+        int64 division (the JAX package reaches the same quotient with
+        wrapping u32 arithmetic and t^-1 mod 2^32).  Bit for bit
+        ``Context.plain_for_add_batch(Context.encode_batch(...))``."""
+        ctx = self.ctx
+        q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
+        poly_br = slots[:, self._enc_inv_map]
+        m = ntt.ntt_inv(poly_br[:, None, :], self._tb_t)[:, 0, :]  # [B, N] mod t
+        fix = torch.div(
+            m.to(I64) * self._fin_r + self._fin_h, int(ctx.t), rounding_mode="floor"
+        )
+        dm = mont_mul(m[:, None, :], self._fin_delta_mont, q, qi)  # [B, k, N]
+        fixb = fix[:, None, :]
+        fixr = torch.where(fixb >= q, fixb - q, fixb)
+        return add_mod(dm, fixr, q)
+
+    def _round_constants(self, rc_words: torch.Tensor) -> torch.Tensor:
+        """Round-constant words int32 [8, T] (rows 2r, 2r+1: rcs1[r],
+        rcs2[r]) -> the scaled plaintexts [4, k, N] (``block_rcs``'s)."""
+        half = self.ctx.n // 2
+        slots = torch.zeros((4, self.ctx.n), dtype=rc_words.dtype, device=rc_words.device)
+        slots[:, :T] = rc_words[0::2]
+        slots[:, half : half + T] = rc_words[1::2]
+        return self._encode_scaled(slots)
+
+    def _expand_impl(self, words: torch.Tensor):
+        """A block's SHAKE words int32 [16, T] (``block_words``) -> its
+        round material: ([4, T, k+1, N] diagonals, [4, k, N] constants)."""
+        return self._expand_round_mats(words[:8]), self._round_constants(words[8:])
+
+    def block_words(self, nonce: int, blocks: List[int]) -> torch.Tensor:
+        """Host: each block's SHAKE words, [len(blocks), 16, T] int32 in one
+        upload: rows 0-7 the first rows of the round matrices (4 rounds x
+        (mat1, mat2); the span ``hhe.transcipher.first_rows``, which runs
+        the SHAKE expansion), rows 8-15 the round-constant words (4 rounds x
+        (rcs1, rcs2); the span ``hhe.transcipher.round_constants``, which
+        holds the upload)."""
+        t = self.ctx.t
+        out = np.empty((len(blocks), 16, T), np.uint32)
         with trace.span("hhe.transcipher.first_rows"):
-            mats1, mats2, _, _ = pasta.block_randomness(self.ctx.t, nonce, b)
-            out = np.empty((8, T), np.uint32)
-            for r in range(4):
-                out[2 * r] = mats1[r][0]
-                out[2 * r + 1] = mats2[r][0]
+            for i, b in enumerate(blocks):
+                mats1, mats2, _, _ = pasta.block_randomness(t, nonce, b)
+                for r in range(4):
+                    out[i, 2 * r] = mats1[r][0]
+                    out[i, 2 * r + 1] = mats2[r][0]
+        with trace.span("hhe.transcipher.round_constants"):
+            for i, b in enumerate(blocks):
+                _, _, rcs1, rcs2 = pasta.block_randomness(t, nonce, b)
+                out[i, 8::2] = rcs1
+                out[i, 9::2] = rcs2
             return self.ctx.to_device(out)
 
     def block_rcs(self, nonce: int, b: int) -> torch.Tensor:
-        """Host: scaled round-constant plaintexts [4, k, N] (the span
-        ``hhe.transcipher.round_constants``)."""
+        """Host: scaled round-constant plaintexts [4, k, N], the reference
+        for ``_round_constants`` (the span ``hhe.transcipher.round_constants``)."""
         with trace.span("hhe.transcipher.round_constants"):
+            RC_BLOCKS["host"] += 1
             ctx = self.ctx
             half = ctx.n // 2
             _, _, rcs1, rcs2 = pasta.block_randomness(ctx.t, nonce, b)
@@ -371,11 +425,10 @@ class Transcipher:
         self._cache_put(self._pt_cache, self._pt_cache_max, kcache, out)
         return out
 
-    def _keystream_seeded_impl(self, key_data, first_rows, rcs_pt, keys):
-        """Keystream with device round-material expansion."""
-        return self._keystream_impl(
-            key_data, self._expand_round_mats(first_rows), rcs_pt, keys
-        )
+    def _keystream_seeded_impl(self, key_data, words, keys):
+        """Keystream with the block's round material made on the device
+        from its SHAKE words [16, T]."""
+        return self._keystream_impl(key_data, *self._expand_impl(words), keys)
 
     # ------------------------------------------------------------------
     # Homomorphic building blocks
@@ -495,27 +548,15 @@ class Transcipher:
     def _finish_impl(self, ks_data: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
         """Negate the keystream and add the symmetric-ciphertext chunk.
 
-        Encodes the chunk on the device (slot scatter -> inverse NTT mod t)
-        and applies the plain-add scaling round(Q m / t) mod q_i =
-        delta_i m + fix.  fix = floor((r m + h) / t) < 2^19 is computed by
-        exact int64 division; the JAX package reaches the same quotient with
-        wrapping u32 arithmetic and t^-1 mod 2^32.
+        Encodes the chunk on the device and scales it for the plain add
+        (``_encode_scaled``).
 
         ks_data [2, k, N]; chunk int32 [B, L<=T]; returns [2, B, k, N]."""
         ctx = self.ctx
-        B = chunk.shape[0]
-        q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
-        slots = torch.zeros((B, ctx.n), dtype=torch.int32, device=chunk.device)
+        q = ctx.tb_q.q
+        slots = torch.zeros((chunk.shape[0], ctx.n), dtype=torch.int32, device=chunk.device)
         slots[:, : chunk.shape[1]] = chunk
-        poly_br = slots[:, self._enc_inv_map]
-        m = ntt.ntt_inv(poly_br[:, None, :], self._tb_t)[:, 0, :]  # [B, N] mod t
-        fix = torch.div(
-            m.to(I64) * self._fin_r + self._fin_h, int(ctx.t), rounding_mode="floor"
-        )
-        dm = mont_mul(m[:, None, :], self._fin_delta_mont, q, qi)  # [B, k, N]
-        fixb = fix[:, None, :]
-        fixr = torch.where(fixb >= q, fixb - q, fixb)
-        scaled = add_mod(dm, fixr, q)
+        scaled = self._encode_scaled(slots)
         c0 = add_mod(neg_mod(ks_data[0], q)[None], scaled, q)
         c1 = neg_mod(ks_data[1], q)[None].expand(c0.shape)
         return torch.stack([c0, c1])
@@ -545,9 +586,9 @@ class Transcipher:
         """BFV ciphertext of the PASTA keystream for block b (cached by key,
         nonce and block, whichever expansion made it).
 
-        With expand_on_device (default) only the [8, T] SHAKE first rows
-        cross from the host and the diagonals are expanded on the device;
-        otherwise the host expands them (``block_plaintexts``)."""
+        With expand_on_device (default) only the block's SHAKE words cross
+        from the host and its round material is made on the device;
+        otherwise the host expands it (``block_plaintexts``)."""
         ck = (id(enc_key.data), nonce, b)
         if ck not in self._ks_cache:
             mats, rcs_pt = self.device_block_plaintexts(nonce, b, expand_on_device)
@@ -560,33 +601,33 @@ class Transcipher:
         return self._ks_cache[ck][1]
 
     def device_block_plaintexts(self, nonce: int, b: int, expand_on_device: bool = True):
-        """Per-block round material on the device (cached): expanded there,
-        ([4, T, k+1, N] NTT+Mont diagonals, [4, k, N] round constants), or
-        with ``expand_on_device=False`` the host's ``block_plaintexts``."""
+        """Per-block round material on the device (cached): made there from
+        the block's SHAKE words, ([4, T, k+1, N] NTT+Mont diagonals, [4, k, N]
+        round constants), or with ``expand_on_device=False`` the host's
+        ``block_plaintexts``."""
         if not expand_on_device:
             return self.block_plaintexts(nonce, b)
         ck = ("dev", nonce, b)
         if ck not in self._pt_cache:
-            mats_qp = self._jit_expand(self.block_first_rows(nonce, b))
-            self._cache_put(
-                self._pt_cache, self._pt_cache_max, ck, (mats_qp, self.block_rcs(nonce, b))
-            )
+            words = self.block_words(nonce, [b])[0]
+            RC_BLOCKS["device"] += 1
+            self._cache_put(self._pt_cache, self._pt_cache_max, ck, self._jit_expand(words))
         return self._pt_cache[ck]
 
     def keystream_blocks(
         self, enc_key: Ciphertext, nonce: int, blocks: List[int]
     ) -> List[Ciphertext]:
         """Keystream ciphertexts for several blocks (cached).  With two or
-        more blocks missing, each block's round material is expanded inside
-        its own keystream evaluation and not kept."""
+        more blocks missing, their SHAKE words cross in one upload and each
+        block's round material is made inside its own keystream evaluation
+        and not kept."""
         missing = [b for b in blocks if (id(enc_key.data), nonce, b) not in self._ks_cache]
         if len(missing) >= 2:
             keys = self._keys()
-            for b in missing:
-                out = self._jit_keystream_seeded(
-                    enc_key.data, self.block_first_rows(nonce, b),
-                    self.block_rcs(nonce, b), keys,
-                )
+            words = self.block_words(nonce, missing)
+            RC_BLOCKS["device"] += len(missing)
+            for b, w in zip(missing, words):
+                out = self._jit_keystream_seeded(enc_key.data, w, keys)
                 self._cache_put(
                     self._ks_cache, self._ks_cache_max,
                     (id(enc_key.data), nonce, b), (enc_key.data, Ciphertext(out)),

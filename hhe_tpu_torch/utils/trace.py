@@ -22,7 +22,8 @@ they cost a flag check each.
 - Counters: the port's counter dicts, counted always (a dict increment) in
   their own modules: K1-K6's launch counts (``graphs.COUNTERS``), the
   graph units' replays, captures and replayed launches, the PASTA block
-  expansions and the host-to-device uploads.  ``counts()`` gives each one's
+  expansions, the blocks whose round constants were made on the device or
+  on the host, and the host-to-device uploads.  ``counts()`` gives each one's
   growth over the last traced stretch: from the first span that saw a
   profiler recording to the first span (or ``counts()``) that saw it stop,
   or to now while it records.
@@ -56,7 +57,7 @@ def span(name: str):
 
 def _registry() -> Dict[str, dict]:
     """The counter dicts by the names ``counts()`` gives them."""
-    from ..ops import mod_kernels, ntt, ntt_kernels, pasta
+    from ..ops import mod_kernels, ntt, ntt_kernels, pasta, transcipher
     from . import graphs
 
     return {"ntt_kernels.LAUNCHES": ntt_kernels.LAUNCHES,
@@ -68,6 +69,7 @@ def _registry() -> Dict[str, dict]:
             "graphs.CAPTURES": graphs.CAPTURES,
             "graphs.REPLAYED": graphs.REPLAYED,
             "pasta.EXPANSIONS": pasta.EXPANSIONS,
+            "transcipher.RC_BLOCKS": transcipher.RC_BLOCKS,
             "ntt.UPLOADS": ntt.UPLOADS}
 
 

@@ -116,11 +116,12 @@ def _transcipher_cases(m, out):
     over the limb ranks by ``shard_limbs`` (through the view's transcipher,
     ``on_limbs``), with the finish of the rank's samples and limbs and the
     1FC on them (N=1024, 6 limbs, seed 5, B=8), gathered; the moduli of
-    every NTT the round ran and the shapes of the rank's key rows; then
+    every NTT the round ran, the shapes of the rank's key rows, and the
+    round constants the rank made on the device over its limbs; then
     csp_decompose(mesh=) of 5 samples of 100 words (padded to the batch
     axis, tail masked) at a fresh nonce, its keystream split over the limb
     ranks, beside the unsplit run."""
-    from hhe_tpu_torch.ops import bfv_eval, helin, pasta
+    from hhe_tpu_torch.ops import bfv_eval, helin, pasta, transcipher
     from hhe_tpu_torch.workloads import hhe_inference as wk
 
     stack = wk.build_stack(
@@ -135,12 +136,16 @@ def _transcipher_cases(m, out):
     key = pasta.get_fixed_symmetric_key()
     enc_key = tc.encrypt_key(stack.pk, key)
     weight_ct = helin.encrypt_weight(ctx, stack.pk, w[None, :])[0]
+    made = dict(transcipher.RC_BLOCKS)
     with NttBases() as bases:
         mats, rcs = tcl.device_block_plaintexts(pasta.NONCE, 0)
         keys = tcl._keys()
         st = tcl._matmul(hmesh.shard_limbs(enc_key, m), tcl.round_mats(mats, 0), keys)
         st = bfv_eval.add_plain(view, st, rcs[0])
         st = tcl._sbox_feistel(tcl._mix(st, keys), keys)
+    out["round_rcs"] = _u32(rcs)
+    out["round_rcs_made"] = np.array([transcipher.RC_BLOCKS[where] - made[where]
+                                      for where in ("device", "host")])
     chunk = ctx.to_device(hmesh.local_batch(x, m))
     fin = bfv.Ciphertext(tcl._finish_impl(st.data, chunk))
     wct = bfv.Ciphertext(weight_ct.data[:, None])
@@ -556,6 +561,20 @@ def test_limb_split_rank_rows(worlds):
         assert int(res["round_ntt_calls"]) > 0
         assert int(res["round_ntt_other_bases"]) == 0 and int(res["round_ntt_whole_q"]) == 0
         assert [6, 4, 1024] in res["round_hoist_shapes"].tolist()
+
+
+def test_limb_split_round_constants_match_jax(worlds, jax_transcipher_stack):
+    """The round constants each limb rank of the world of four makes on the
+    device, over its view's moduli, are its rows of the JAX package's host
+    ``block_rcs``, bit for bit: the whole context's rows."""
+    from hhe_tpu.ops import pasta as jpasta
+
+    want = np.asarray(jax_transcipher_stack.tc.block_rcs(jpasta.NONCE, 0))
+    for res in worlds[4].results():
+        lo, hi = res["round_limbs"].tolist()
+        assert res["round_rcs"].shape == (4, hi - lo, 1024) and hi - lo == 3
+        assert same(res["round_rcs"], want[:, lo:hi])
+        assert res["round_rcs_made"].tolist() == [1, 0]
 
 
 @pytest.fixture(scope="module")

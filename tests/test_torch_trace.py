@@ -8,8 +8,12 @@ backend of ``tests/test_torch_graphs.py`` (a replay reruns the body):
   request leaves ``counts()`` as it was;
 - under ``torch.profiler`` (CPU activity) every span of the path appears,
   each a ``cpu_op`` and never a user annotation, nested as the layers are,
-  with one SHAKE expansion a block;
-- ``ntt.UPLOADS`` counts the request's bytes exactly, from the shapes;
+  with one SHAKE expansion a block, and no host encode or scaling under
+  the round material's spans (the round constants are made on the device);
+- ``ntt.UPLOADS`` counts the request's bytes exactly, from the shapes: the
+  SHAKE words of every block in one upload, then the records;
+- MNIST's seven blocks: one upload of their words, their round constants
+  made on the device (``transcipher.RC_BLOCKS``);
 - ``counts()`` holds the traced request's counts alone, not a warm-up's;
 - the benchmark's readers ``round_material_ms``, ``upload_mb`` and
   ``eager_launch_pct`` read their values from a ``Run`` built on the
@@ -41,11 +45,24 @@ RECORDS = 3
 NONCES = (2**40 + 101, 2**40 + 102, 2**40 + 103)  # warm-up, traced, untraced: cold SHAKE caches
 PATH_SPANS = {
     "hhe.csp_decompose", "hhe.transcipher.first_rows", "hhe.pasta.shake",
-    "hhe.transcipher.round_constants", "hhe.bfv.encode", "hhe.bfv.scale", "hhe.upload",
+    "hhe.transcipher.round_constants", "hhe.upload",
     "hhe.graph.expand", "hhe.graph.keystream", "hhe.graph.finish",
     "hhe.csp_eval_1fc", "hhe.graph.eval_1fc",
     "hhe.eval.multiply", "hhe.eval.square", "hhe.eval.relinearize", "hhe.eval.galois",
 }
+
+
+def inside(spans, inner, outer):
+    """(start, end) of each ``inner`` span that lies inside an ``outer`` one."""
+    return [(s, e) for n, s, e, _ in spans if n == inner
+            and any(os <= s and e <= oe for on, os, oe, _ in spans if on == outer)]
+
+
+def no_host_encode(spans):
+    """No host encode or scaling under the round material's spans."""
+    return not any(inside(spans, inner, outer)
+                   for inner in ("hhe.bfv.encode", "hhe.bfv.scale")
+                   for outer in ("hhe.transcipher.first_rows", "hhe.transcipher.round_constants"))
 
 
 def _events(prof):
@@ -108,24 +125,22 @@ def test_path_spans_are_host_ops_nested_by_layer(ecg):
     # read the first rows' cache entry
     assert [name for name, *_ in spans].count("hhe.pasta.shake") == 1
 
-    def inside(inner, outer):
-        return [(s, e) for n, s, e, _ in spans if n == inner
-                and any(os <= s and e <= oe for on, os, oe, _ in spans if on == outer)]
-
-    assert inside("hhe.upload", "hhe.transcipher.round_constants")
-    assert inside("hhe.transcipher.round_constants", "hhe.csp_decompose")
-    assert inside("hhe.pasta.shake", "hhe.transcipher.first_rows")
-    assert inside("hhe.bfv.scale", "hhe.transcipher.round_constants")
-    assert inside("hhe.graph.keystream", "hhe.csp_decompose")
-    assert inside("hhe.graph.eval_1fc", "hhe.csp_eval_1fc")
-    assert not inside("hhe.graph.eval_1fc", "hhe.csp_decompose")
+    assert inside(spans, "hhe.upload", "hhe.transcipher.round_constants")
+    assert inside(spans, "hhe.transcipher.round_constants", "hhe.csp_decompose")
+    assert inside(spans, "hhe.pasta.shake", "hhe.transcipher.first_rows")
+    assert no_host_encode(spans)
+    assert inside(spans, "hhe.graph.keystream", "hhe.csp_decompose")
+    assert inside(spans, "hhe.graph.eval_1fc", "hhe.csp_eval_1fc")
+    assert not inside(spans, "hhe.graph.eval_1fc", "hhe.csp_decompose")
 
 
 def test_uploads_count_the_request_bytes_exactly(ecg):
-    k, n, t = ecg["k"], ecg["n"], transcipher.T
-    rcs, first_rows, records = 4 * k * n * 4, 8 * t * 4, RECORDS * t * 4
-    assert ecg["traced"]["ntt.UPLOADS.bytes"] == rcs + first_rows + records
-    assert ecg["traced"]["ntt.UPLOADS.calls"] == 3
+    t = transcipher.T
+    words, records = 16 * t * 4, RECORDS * t * 4  # first rows and round-constant words
+    assert ecg["traced"]["ntt.UPLOADS.bytes"] == words + records
+    assert ecg["traced"]["ntt.UPLOADS.calls"] == 2
+    assert ecg["traced"]["transcipher.RC_BLOCKS.device"] == 1
+    assert "transcipher.RC_BLOCKS.host" not in ecg["traced"]
 
 
 def test_counts_hold_the_traced_request_alone(ecg):
@@ -214,3 +229,44 @@ def test_upload_funnel_keeps_dtype_and_bits():
     assert y.dtype == torch.int64 and y.tolist() == [[0, 2], [3, 5]]
     assert ntt.UPLOADS["calls"] - before["calls"] == 2
     assert ntt.UPLOADS["bytes"] - before["bytes"] == 16 + 32
+
+
+def test_mnist_blocks_words_cross_in_one_upload(monkeypatch):
+    """(Last in the file: it leaves its own stretch in ``counts()``.)
+    MNIST's record of 784 words (7 blocks, the tail masked, flattened)
+    at N=1024 / 4 limbs: the 7 blocks' SHAKE words cross in one upload,
+    before the records' 7 and the tail mask's; every block's round
+    constants are made on the device; no host encode or scaling under the
+    round material's spans.  The keystream unit is a stand-in (the host
+    side is what is checked; test_torch_transcipher.py holds the seeded
+    keystream against the JAX package)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        st = wk.build_stack(bfv.BFVParams(n=1024, data_limbs=4, seed=11), input_len=784,
+                            device="cpu", device_keygen=True)
+        rng = np.random.default_rng(6)
+        enc_key = st.tc.encrypt_key(st.pk, rng.integers(0, st.ctx.t, 256))
+        seen = []
+
+        def keystream(key_data, words, keys):
+            seen.append(tuple(words.shape))
+            return key_data
+        monkeypatch.setattr(st.tc, "_jit_keystream_seeded", keystream)
+        sym = rng.integers(0, st.ctx.t, (2, 784)).astype(np.uint64)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            wk.csp_decompose(st, enc_key, sym, nonce=2**40 + 104)
+        got = trace.counts()
+    finally:
+        torch.set_num_threads(threads)
+    t, k, n = transcipher.T, st.ctx.k, st.ctx.n
+    assert seen == [(16, t)] * 7
+    assert got["transcipher.RC_BLOCKS.device"] == 7 and "transcipher.RC_BLOCKS.host" not in got
+    assert got["pasta.EXPANSIONS.native"] + got.get("pasta.EXPANSIONS.python", 0) == 7
+    assert got["ntt.UPLOADS.calls"] == 1 + 7 + 1
+    assert got["ntt.UPLOADS.bytes"] == 7 * 16 * t * 4 + 2 * 784 * 4 + k * n * 4
+    spans = _events(prof)
+    words = inside(spans, "hhe.upload", "hhe.transcipher.round_constants")
+    assert len(words) == 1 and words[0][1] < min(s for name, s, *_ in spans
+                                                 if name == "hhe.helin.make_mask")
+    assert no_host_encode(spans)

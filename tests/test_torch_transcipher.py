@@ -2,7 +2,11 @@
 for array, on the (N=2048, 4 limbs) stack of ``test_transcipher.py`` (CPU).
 
 The keys are made once by the JAX package and carried to the port, so both
-evaluate the same keystream on the same encrypted key."""
+evaluate the same keystream on the same encrypted key.  The round constants
+are made on the device from their SHAKE words; ``RC_BLOCKS`` says where
+each block's were made."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ from hhe_tpu.ops import transcipher as jtr
 from hhe_tpu_torch import convert
 from hhe_tpu_torch.ops import bfv as tbfv
 from hhe_tpu_torch.ops import bfv_eval as tev
+from hhe_tpu_torch.ops import ntt
 from hhe_tpu_torch.ops import pasta as tpasta
 from hhe_tpu_torch.ops import transcipher as ttr
 
@@ -35,6 +40,14 @@ def one_torch_thread():
 
 def same(t_obj, j_arr):
     return np.array_equal(convert.to_numpy(t_obj), np.asarray(j_arr).astype(np.uint32))
+
+
+@contextlib.contextmanager
+def rc_blocks():
+    """The growth of ``transcipher.RC_BLOCKS`` inside the block."""
+    before, grew = dict(ttr.RC_BLOCKS), {}
+    yield grew
+    grew.update({k: v - before[k] for k, v in ttr.RC_BLOCKS.items()})
 
 
 @pytest.fixture(scope="module")
@@ -70,13 +83,70 @@ def test_galois_elts_and_bsgs_keys_match(stacks):
 
 
 def test_expand_round_mats_match(stacks):
+    """A block's SHAKE words: the first rows equal the JAX package's, and
+    the expand unit's diagonals and round constants equal its expansion and
+    its host round constants."""
     jt, tt = stacks["jt"], stacks["tt"]
+    words = tt.block_words(jpasta.NONCE, [0, 1])
+    assert tuple(words.shape) == (2, 16, T) and words.dtype == torch.int32
     for b in (0, 1):
         jrows = jt.block_first_rows(jpasta.NONCE, b)
-        trows = tt.block_first_rows(jpasta.NONCE, b)
+        trows = words[b, :8]
         assert same(trows, jrows)
         assert same(tt.block_rcs(jpasta.NONCE, b), jt.block_rcs(jpasta.NONCE, b))
         assert same(tt._expand_round_mats(trows), jt._jit_expand(jrows))
+        mats, rcs = tt._jit_expand(words[b])
+        assert same(mats, jt._jit_expand(jrows)) and same(rcs, jt.block_rcs(jpasta.NONCE, b))
+
+
+@pytest.mark.parametrize("nonce,b", [(jpasta.NONCE, 0), (jpasta.NONCE, 5), (2**40 + 17, 0),
+                                     (2**31 + 9, 2)])
+def test_device_round_constants_match_jax(stacks, nonce, b):
+    """The round constants made on the device from their words equal the
+    JAX package's host ``block_rcs`` bit for bit, and the port's."""
+    jt, tt = stacks["jt"], stacks["tt"]
+    got = tt._round_constants(tt.block_words(nonce, [b])[0, 8:])
+    assert tuple(got.shape) == (4, tt.ctx.k, tt.ctx.n) and got.dtype == torch.int32
+    assert same(got, jt.block_rcs(nonce, b))
+    assert torch.equal(got, tt.block_rcs(nonce, b))
+
+
+class Calls:
+    """Counts the calls of the transcipher's kernel wrappers (one kernel
+    launch each on the card) while the block runs."""
+
+    NAMES = ("mont_mul", "add_mod", "neg_mod")
+
+    def __init__(self, monkeypatch):
+        self.n = {}
+
+        def counted(name, fn):
+            def call(*a, **kw):
+                self.n[name] = self.n.get(name, 0) + 1
+                return fn(*a, **kw)
+            return call
+
+        for name in self.NAMES:
+            monkeypatch.setattr(ttr, name, counted(name, getattr(ttr, name)))
+        monkeypatch.setattr(ttr.ntt, "ntt_inv", counted("ntt_inv", ttr.ntt.ntt_inv))
+
+
+def test_finish_result_and_launches_unchanged(stacks, monkeypatch):
+    """The finish through the shared encode-and-scale equals the JAX
+    package's ``_jit_finish`` and calls K2 once, K3 once and K5 four
+    times; the round constants take the same K2, K3 and K5 once each."""
+    jt, tt = stacks["jt"], stacks["tt"]
+    rng = np.random.default_rng(9)
+    ks = rng.integers(0, 2**30, (2, tt.ctx.k, tt.ctx.n)).astype(np.uint32)
+    ks %= np.asarray(tt.ctx.q_moduli, np.uint32)[:, None]
+    chunk = rng.integers(0, tt.ctx.t, (3, 100)).astype(np.uint32)
+    calls = Calls(monkeypatch)
+    got = tt._finish_impl(torch.from_numpy(ks.view(np.int32)), torch.from_numpy(chunk.view(np.int32)))
+    assert calls.n == {"ntt_inv": 1, "mont_mul": 1, "add_mod": 2, "neg_mod": 2}
+    assert same(got, jt._jit_finish(ks, chunk))
+    calls.n.clear()
+    tt._round_constants(tt.block_words(jpasta.NONCE, [0])[0, 8:])
+    assert calls.n == {"ntt_inv": 1, "mont_mul": 1, "add_mod": 1}
 
 
 @pytest.mark.parametrize("use_bsgs", [True, False], ids=["bsgs", "diagonal"])
@@ -168,7 +238,13 @@ def test_keystream_blocks_match(stacks):
     inside each evaluation); each equals the JAX package's keystream_ct."""
     jt, tt = stacks["jt"], stacks["tt"]
     nonce = tpasta.NONCE + 3
-    tks = tt.keystream_blocks(stacks["tkey"], nonce, [0, 1])
+    uploads = dict(ntt.UPLOADS)
+    with rc_blocks() as made:
+        tks = tt.keystream_blocks(stacks["tkey"], nonce, [0, 1])
+    assert made == {"device": 2, "host": 0}
+    # both blocks' SHAKE words in one upload
+    assert ntt.UPLOADS["calls"] - uploads["calls"] == 1
+    assert ntt.UPLOADS["bytes"] - uploads["bytes"] == 2 * 16 * T * 4
     assert ("dev", nonce, 0) not in tt._pt_cache
     for b in (0, 1):
         assert same(tks[b].data, jt.keystream_ct(stacks["jkey"], nonce, b).data), b
@@ -182,9 +258,44 @@ def test_decompose_matches(stacks):
     nonce = tpasta.NONCE + 7
     sym = tpasta.Pasta(stacks["key"], tt.ctx.t).encrypt(x, nonce=nonce)
     jres = jt.decompose(stacks["jkey"], sym, nonce=nonce)
-    tres = tt.decompose(stacks["tkey"], sym, nonce=nonce)
+    with rc_blocks() as made:
+        tres = tt.decompose(stacks["tkey"], sym, nonce=nonce)
+    assert made == {"device": 1, "host": 0}
     assert len(tres) == len(jres) == 1
     assert tuple(tres[0].data.shape) == (2, 2, tt.ctx.k, tt.ctx.n)
     assert same(tres[0].data, jres[0].data)
     one = tt.decompose(stacks["tkey"], sym[0], nonce=nonce)  # unbatched input
     assert torch.equal(one[0].data, tres[0].data[:, 0])
+
+
+def test_round_constants_path_follows_t(stacks):
+    """At t = 65537 a block's round constants are made on the device, equal
+    to the host's; a t the device's arithmetic cannot hold builds no
+    Transcipher, as no device path can encode there: the 47-bit
+    ``conv_plain_t`` (K2 at t wants t below 2^31), and a 31-bit t above twice
+    the smallest q_i (one conditional subtract no longer reduces fix < t)."""
+    from hhe_tpu_torch.workloads.he_conv import conv_plain_t
+
+    def build(t):
+        ctx = tbfv.Context(tbfv.BFVParams(n=256, t=t, data_limbs=3, seed=3), device="cpu")
+        sk = ctx.keygen_secret()
+        return ctx, lambda: ttr.Transcipher(
+            ctx, ctx.keygen_relin(sk), ctx.keygen_galois(sk, ttr.galois_elts(ctx, False)),
+            use_bsgs=False)
+
+    tt = stacks["tt"]
+    assert tt.ctx.t == 65537
+    with rc_blocks() as made:
+        _, rcs = tt.device_block_plaintexts(tpasta.NONCE + 11, 1)
+    assert made == {"device": 1, "host": 0}
+    with rc_blocks() as made:
+        assert torch.equal(rcs, tt.block_rcs(tpasta.NONCE + 11, 1))
+    assert made == {"device": 0, "host": 1}
+
+    _, make = build(conv_plain_t(256))
+    with pytest.raises(ValueError, match="below 2"):
+        make()
+    ctx, make = build(2147483137)  # prime, 1 mod 512, below 2^31
+    assert 2 * min(ctx.q_moduli) < ctx.t < 2**31
+    with pytest.raises(ValueError, match="twice the smallest q_i"):
+        make()
