@@ -1,9 +1,10 @@
 """The CSP's request path for a one-layer FC model with the analyst's sum
-(ECG 1FC), as ``hhe_ecg_full_inference`` runs it: ``csp_decompose`` (the
-transcipher) over the request's records, then ``csp_eval_1fc`` without the
-slot sum (ct x ct product and relinearisation) in slices of ``EVAL_BATCH``
-records, ending in a synchronise.  The results hold the slot-wise products
-w_i x_i."""
+(ECG 1FC), as ``hhe_ecg_full_inference`` runs it: for PASTA uploads
+``csp_decompose`` (the transcipher) over the request's records, for BFV
+uploads the users' ciphertexts copied to the card; then ``csp_eval_1fc``
+without the slot sum (ct x ct product and relinearisation) in slices of
+``EVAL_BATCH`` records, ending in a synchronise.  The results hold the
+slot-wise products w_i x_i."""
 
 from __future__ import annotations
 
@@ -21,26 +22,37 @@ class Entry:
 
         cfg = h.config
         self.words = cfg["input_words"]
-        if self.words > transcipher.T:
-            raise ValueError("csp_1fc takes one PASTA block a record")
-        self.stack = h.program_stack(lambda ctx: transcipher.galois_elts(ctx, True))
+        self.pasta = h.upload == "pasta"
+        if self.pasta:
+            if self.words > transcipher.T:
+                raise ValueError("csp_1fc takes one PASTA block a record")
+            self.stack = h.program_stack(lambda ctx: transcipher.galois_elts(ctx, True))
+        else:
+            self.stack = h.program_stack(lambda ctx: ())  # the product needs no rotation
         self.w = torch.as_tensor(h.rng.integers(cfg["weight_low"], cfg["weight_high"], self.words),
                                  device=h.device)
         h.weights = {"w": self.w}
-        self.enc_key = h.encrypted_pasta_key()
+        self.enc_key = h.encrypted_pasta_key() if self.pasta else None
         self.wct = bfv.Ciphertext(h.encrypt_slots(self.w[None]))  # [2, 1, k, N]
 
-    def request(self, nonce, sym, span, sync_layers):
+    def request(self, nonce, upload, span, sync_layers):
+        """``upload``: PASTA ciphertexts [B, L] uint64 under ``nonce``, or BFV
+        ciphertexts [2, B, k, N] int32 on the host."""
         from hhe_tpu_torch.ops.bfv import Ciphertext
         from hhe_tpu_torch.workloads import hhe_inference as wk
 
         ctx = self.stack.ctx
-        with span("decompose"):
-            data = wk.csp_decompose(self.stack, self.enc_key, sym, nonce=nonce)
-            if sync_layers:
-                ctx.synchronize()
+        if self.pasta:
+            with span("decompose"):
+                dd = wk.csp_decompose(self.stack, self.enc_key, upload, nonce=nonce).data
+                if sync_layers:
+                    ctx.synchronize()
+        else:
+            with span("upload"):
+                dd = upload.to(ctx.device)
+                if sync_layers:
+                    ctx.synchronize()
         with span("eval"):
-            dd = data.data
             outs = [wk.csp_eval_1fc(self.stack, Ciphertext(dd[:, e:e + EVAL_BATCH]), self.wct,
                                     do_sum=False).data
                     for e in range(0, dd.shape[1], EVAL_BATCH)]

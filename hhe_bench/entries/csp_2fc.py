@@ -38,12 +38,12 @@ class Entry:
         rows = h.encrypt_slots(h.weights["w1"].T)  # [2, hidden, k, N]: one ciphertext a hidden row
         self.w1_cts = [bfv.Ciphertext(rows[:, r]) for r in range(hidden)]
 
-    def request(self, nonce, sym, span, sync_layers):
+    def request(self, nonce, upload, span, sync_layers):
         from hhe_tpu_torch.workloads import hhe_inference as wk
 
         ctx = self.stack.ctx
         with span("decompose"):
-            data = wk.csp_decompose(self.stack, self.enc_key, sym, nonce=nonce)
+            data = wk.csp_decompose(self.stack, self.enc_key, upload, nonce=nonce)
             if sync_layers:
                 ctx.synchronize()
         with span("eval"):

@@ -72,22 +72,27 @@ def log(msg: str):
 
 
 class Pool:
-    """The users' uploads, encrypted before the window: request i is
-    ``records_per_request`` records under nonce ``base + i``; no nonce
-    repeats in a run.  Past the pool's end further requests are encrypted
-    inline, and the run says so."""
+    """The users' uploads, made before the window: request i is
+    ``records_per_request`` records under nonce ``base + i`` (no nonce
+    repeats in a run), uploaded as the configuration's ``upload`` says
+    (``Harness.upload``): PASTA-3 ciphertexts [B, L] uint64 under the
+    user's PASTA key, or BFV ciphertexts [2, B, k, N] int32 on the host,
+    record b in slots [0, L) of ciphertext b, under the benchmark's public
+    key.  Past the pool's end further requests are encrypted inline, and
+    the run says so."""
 
     CHUNK = 256  # keystream blocks a call (268 MB of round matrices)
+    BFV_ROWS = 64  # records a call of the reference's encryption
 
     def __init__(self, h: "Harness", count: int, base: int):
         self.h, self.base, self.count, self.issued = h, base, count, 0
-        self.records, self.sym = self._make(0, count) if count else (None, None)
+        self.records, self.uploads = self._make(0, count) if count else (None, None)
 
     def _make(self, first: int, count: int):
         h, cfg = self.h, self.h.config
         b, words, t = h.traffic["records_per_request"], cfg["input_words"], cfg["t"]
         blocks = -(-words // ref_pasta.T)
-        recs, syms = [], []
+        recs, ups = [], []
         step = max(1, self.CHUNK // blocks)
         for s in range(first, first + count, step):
             n = min(step, first + count - s)
@@ -95,23 +100,32 @@ class Pool:
             if cfg["record_zero_share"]:
                 keep = torch.rand((n, b, words), generator=h.gen, device=h.device) >= cfg["record_zero_share"]
                 x = x * keep
+            recs.append(x.to(torch.uint8).cpu().numpy())
+            if h.upload == "bfv":
+                ups += [self._encrypt(r) for r in x]
+                continue
             ks = ref_pasta.keystream(h.pasta_key, [self.base + i for i in range(s, s + n)], blocks, t,
                                      h.device)
-            recs.append(x.to(torch.uint8).cpu().numpy())
-            syms.append(((x + ks[:, None, :words]) % t).cpu().numpy().astype(np.uint64))
-        return np.concatenate(recs), np.concatenate(syms)
+            ups.append(((x + ks[:, None, :words]) % t).cpu().numpy().astype(np.uint64))
+        return np.concatenate(recs), ups if h.upload == "bfv" else np.concatenate(ups)
+
+    def _encrypt(self, x: torch.Tensor) -> torch.Tensor:
+        """One request's records [B, L] -> its BFV upload [2, B, k, N] int32 on
+        the host, encrypted on the records' device BFV_ROWS at a time."""
+        return torch.cat([self.h.encrypt_slots(x[r:r + self.BFV_ROWS]).cpu()
+                          for r in range(0, x.shape[0], self.BFV_ROWS)], 1)
 
     def next(self):
-        """(index, nonce, symmetric ciphertexts [B, L] uint64)."""
+        """(index, nonce, upload)."""
         i = self.issued
         self.issued += 1
         if i < self.count:
-            return i, self.base + i, self.sym[i]
+            return i, self.base + i, self.uploads[i]
         if i == self.count:
             log(f"the pool of {self.count} requests ran out: request {i} on are encrypted inline")
-        rec, sym = self._make(i, 1)
+        rec, up = self._make(i, 1)
         self.records = np.concatenate([self.records, rec]) if self.records is not None else rec
-        return i, self.base + i, sym[0]
+        return i, self.base + i, up[0]
 
 
 class Harness:
@@ -130,7 +144,13 @@ class Harness:
         self.s = self.scheme.secret_key(self.rng)
         self.s_dev = torch.as_tensor(self.s, dtype=torch.int64, device=self.device)
         self.pk = self.scheme.public_key(self.s_dev, self.gen)
-        self.pasta_key = self.rng.integers(0, cfg["t"], ref_pasta.KEY_WORDS)
+        # what the configuration's users upload (README): "pasta" (the
+        # default) or "bfv"
+        self.upload = cfg.get("upload", "pasta")
+        if self.upload not in ("pasta", "bfv"):
+            raise ValueError(f"upload {self.upload!r}: 'pasta' or 'bfv'")
+        if self.upload == "pasta":
+            self.pasta_key = self.rng.integers(0, cfg["t"], ref_pasta.KEY_WORDS)
 
     def encrypt_slots(self, values: torch.Tensor) -> torch.Tensor:
         """Slot values [..., L] -> int32 ciphertexts [2, ..., k, N] under the
@@ -141,7 +161,8 @@ class Harness:
         """The program's CSP stack: a Context at the configuration's
         parameters, evaluation keys made on the device from the benchmark's
         secret key (relinearisation, and the galois elements that
-        ``galois_elts(ctx)`` names), the transcipher."""
+        ``galois_elts(ctx)`` names), and for PASTA uploads the transcipher
+        (``tc`` None for BFV uploads)."""
         from hhe_tpu_torch.ops import bfv, transcipher
         from hhe_tpu_torch.workloads import hhe_inference as wk
 
@@ -153,13 +174,17 @@ class Harness:
         sk = bfv.SecretKey(self.s, self.scheme.secret_residues(self.s))
         rk, gks = ctx.keygen_eval_keys_device(sk, sorted(set(galois_elts(ctx))), include_relin=True,
                                               seed=self.seed)
-        tc = transcipher.Transcipher(ctx, rk, gks)
+        tc = transcipher.Transcipher(ctx, rk, gks) if self.upload == "pasta" else None
         return wk.HHEStack(ctx, sk, None, rk, gks, tc)
 
     def encrypted_pasta_key(self):
         """The user's PASTA key under BFV: halves in slots [0, 128) and
         [N/2, N/2 + 128), the transcipher's packing."""
         from hhe_tpu_torch.ops.bfv import Ciphertext
+
+        if self.upload != "pasta":
+            raise ValueError(f"{self.config['name']} takes {self.upload} uploads: "
+                             "its users hold no PASTA key")
 
         half, t = self.config["n"] // 2, ref_pasta.T
         v = torch.zeros(half + t, dtype=torch.int64, device=self.device)
@@ -239,7 +264,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda", t_
         recording = recorder if trace and i == WARMUP - 1 else contextlib.nullcontext()
         launches_0 = launches()
         with recording:
-            entry.request(base + i, pool.sym[i % pool.count], contextlib.nullcontext, False)
+            entry.request(base + i, pool.uploads[i % pool.count], contextlib.nullcontext, False)
             sync()
         warm_launches = launches() - launches_0
     setup_s = time.perf_counter() - t_start
@@ -261,8 +286,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda", t_
         while time.perf_counter() < deadline:
             t_issue = time.perf_counter()
             with span("fetch"):
-                i, nonce, sym = pool.next()
-            out = entry.request(nonce, sym, span, trace)  # ends synchronised
+                i, nonce, upload = pool.next()
+            out = entry.request(nonce, upload, span, trace)  # ends synchronised
             t_done = time.perf_counter()
             latencies.append(t_done - t_issue)
             if i in picks:

@@ -12,9 +12,12 @@ Conventions it shares with the program by definition, not by code:
 - a ciphertext is int32 [2, ..., k, N] in the coefficient domain, values in
   [0, q_i); decryption is round(t [c0 + c1 s]_Q / Q) mod t.
 
-Every tensor is int64 inside; products of two residues below 2^31 fit.
-Runs on whichever device its inputs are on (the CPU in the tests, the card
-in a benchmark run, after the program's state is freed).
+Every tensor is int64 inside and every result exact for any t below 2^50.
+A product of two residues below 2^31 fits int64, and is taken as it is;
+residues mod a wider prime (t alone: the data moduli are 30-bit) are
+multiplied by ``mulmod`` in chunks.  Runs on whichever device its inputs
+are on (the CPU in the tests, the card in a benchmark run, after the
+program's state is freed).
 """
 
 from __future__ import annotations
@@ -29,6 +32,26 @@ I64 = torch.int64
 WORD = 31  # bits of a fraction word: a residue below 2^31 shifted by it fits int64
 MASK = (1 << WORD) - 1
 FRAC_WORDS = 3
+NARROW = 31  # primes below 2^NARROW multiply their residues in one int64 product
+T_BITS = 50  # t below 2^T_BITS
+T_SPLIT = 20  # decryption takes t y as (t >> T_SPLIT) y 2^T_SPLIT + (t mod 2^T_SPLIT) y
+
+
+def mulmod(a: torch.Tensor, b: torch.Tensor, p, bits: int) -> torch.Tensor:
+    """a b mod p, broadcasting, for residues b in [0, p) of primes p below
+    2^bits.  Below 2^NARROW the product fits int64.  Above, a is reduced and
+    b taken in chunks of s = 62 - bits bits from the top (Horner), so that
+    the running remainder shifted by s bits and a times a chunk each stay
+    below 2^62 and their sum below 2^63."""
+    if bits <= NARROW:
+        return a * b % p
+    s = 62 - bits
+    top = -(-bits // s) - 1
+    a = a % p
+    r = a * (b >> (top * s)) % p
+    for c in range(top - 1, -1, -1):
+        r = ((r << s) + a * ((b >> (c * s)) & ((1 << s) - 1))) % p
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +136,7 @@ class Negacyclic:
 
     def __init__(self, primes: Sequence[int], n: int, device):
         self.n, self.primes = n, tuple(int(p) for p in primes)
+        self.bits = max(p.bit_length() for p in self.primes)
         self.log_n = n.bit_length() - 1
         self.p = torch.tensor(self.primes, dtype=I64, device=device)[:, None]
         rev = torch.zeros(n, dtype=I64)
@@ -133,7 +157,7 @@ class Negacyclic:
 
     def _powers(self, base: int, p: int, scale: int) -> np.ndarray:
         """scale * base^i mod p for i < n: the first 128 powers times each
-        128th, as an outer product (both below 2^31)."""
+        128th, as an outer product."""
         step = min(128, self.n)
         lo = np.empty(step, np.int64)
         v = scale % p
@@ -146,7 +170,8 @@ class Negacyclic:
         for j in range(self.n // step):
             hi[j] = v
             v = v * big % p
-        return (hi[:, None] * lo[None, :] % p).reshape(-1)
+        return mulmod(torch.from_numpy(hi)[:, None], torch.from_numpy(lo)[None, :], p,
+                      p.bit_length()).reshape(-1).numpy()
 
     def _cyclic(self, x: torch.Tensor, om: torch.Tensor) -> torch.Tensor:
         x = x[..., self.rev]
@@ -157,21 +182,21 @@ class Negacyclic:
             w = om[:, :: n // (2 * half)][:, :half]  # [k, half]
             xv = x.reshape(*lead, k, n // (2 * half), 2, half)
             u = xv[..., 0, :]
-            v = xv[..., 1, :] * w[:, None, :] % self.p[..., None]
+            v = mulmod(xv[..., 1, :], w[:, None, :], self.p[..., None], self.bits)
             x = torch.stack(((u + v) % self.p[..., None], (u - v) % self.p[..., None]), -2)
             x = x.reshape(*lead, k, n)
             half *= 2
         return x
 
     def fwd(self, a: torch.Tensor) -> torch.Tensor:
-        return self._cyclic(a.to(I64) * self.tw % self.p, self.om)
+        return self._cyclic(mulmod(a.to(I64), self.tw, self.p, self.bits), self.om)
 
     def inv(self, a: torch.Tensor) -> torch.Tensor:
-        return self._cyclic(a.to(I64), self.iom) * self.itw % self.p
+        return mulmod(self._cyclic(a.to(I64), self.iom), self.itw, self.p, self.bits)
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """a * b mod (X^n + 1, p_i), both [..., k, n] (broadcasting)."""
-        return self.inv(self.fwd(a) * self.fwd(b) % self.p)
+        return self.inv(mulmod(self.fwd(a), self.fwd(b), self.p, self.bits))
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +244,10 @@ class Scheme:
     """BFV at (n, t, bits, limbs) on ``device``; randomness from ``gen``."""
 
     def __init__(self, n: int, t: int, bits: int, limbs: int, device):
+        if not 1 < t < 1 << T_BITS:
+            raise ValueError(f"t = {t}: the reference is exact for 1 < t < 2^{T_BITS}")
+        if bits > NARROW:
+            raise ValueError(f"{bits}-bit data moduli: the reference takes them below 2^{NARROW}")
         self.n, self.t, self.device = n, t, torch.device(device)
         self.special, self.q = moduli(n, t, bits, limbs)
         self.k = len(self.q)
@@ -277,7 +306,8 @@ class Scheme:
         u = self.to_rns(self.ternary(lead, gen))
         fu = self.rns.fwd(u)
         c = [self.rns.inv(self.rns.fwd(pk[i]) * fu % self.qcol) for i in range(2)]
-        c[0] = (c[0] + self.to_rns(self.cbd(lead, gen)) + self.delta * m[..., None, :].to(I64)) % self.qcol
+        dm = self.delta * (m[..., None, :].to(I64) % self.qcol)
+        c[0] = (c[0] + self.to_rns(self.cbd(lead, gen)) + dm) % self.qcol
         c[1] = (c[1] + self.to_rns(self.cbd(lead, gen))) % self.qcol
         return torch.stack(c).to(torch.int32)
 
@@ -287,12 +317,16 @@ class Scheme:
         for x = [c0 + c1 s]_Q: below 1 exactly where decryption is right.
         t x / Q is sum_i t y_i / q_i mod t with y_i = x_i (Q/q_i)^-1 mod q_i;
         each fraction is taken to FRAC_WORDS words of 31 bits, so the share
-        reads down to about k 2^-92."""
+        reads down to about k 2^-92 at any t.  t y_i (up to 2^81) is split as
+        (t_hi y_i) 2^T_SPLIT + t_lo y_i, each part below 2^62."""
         c0, c1 = ct[0].to(I64), ct[1].to(I64)
         x = (c0 + self.rns.mul(c1, self.to_rns(s))) % self.qcol
-        ty = self.t * (x * self.punc_inv % self.qcol)
-        whole = (ty // self.qcol).sum(-2)  # the integer parts of t y_i / q_i
-        rem = ty % self.qcol
+        y = x * self.punc_inv % self.qcol
+        hi = (self.t >> T_SPLIT) * y
+        lo = ((hi % self.qcol) << T_SPLIT) + (self.t & ((1 << T_SPLIT) - 1)) * y
+        # the integer parts of t y_i / q_i, and the remainders
+        whole = (((hi // self.qcol) << T_SPLIT) + lo // self.qcol).sum(-2)
+        rem = lo % self.qcol
         words = []
         for _ in range(FRAC_WORDS):  # most significant first
             rem = rem << WORD

@@ -61,7 +61,10 @@ def layer_material(nonce: int, block: int, p: int) -> np.ndarray:
 
 def keystream(key: np.ndarray, nonces: Sequence[int], blocks: int, p: int, device) -> torch.Tensor:
     """Keystream words [len(nonces), blocks * T] (int64, on ``device``) of
-    ``key`` (256 words below p) under each nonce."""
+    ``key`` (256 words below p) under each nonce.  The matrix products sum T
+    products of two residues in int64: p has to be below 2^28."""
+    if T * (p - 1) ** 2 >= 1 << 63:
+        raise ValueError(f"p = {p}: the keystream's int64 products need p below 2^28")
     mat = torch.as_tensor(np.stack([layer_material(int(nc), b, p)
                                     for nc in nonces for b in range(blocks)]), device=device)
     first, rc = mat[:, :, :2], mat[:, :, 2:]  # [P, R+1, 2, T]

@@ -1,9 +1,12 @@
 """BENCHMARK.json and the folder obey the benchmark's contract: legal names
 and units, every name resolving to its file, the imports the harness and
-the reference may make, a pool that never repeats a nonce, and a run that
-fails without a card instead of falling back to the CPU."""
+the reference may make, a pool that never repeats a nonce, a PASTA pool and
+reference that give the bits they gave before BFV uploads came in, a BFV
+pool that decrypts to its records, and a run that fails without a card
+instead of falling back to the CPU."""
 
 import ast
+import hashlib
 import json
 import os
 import pathlib
@@ -133,6 +136,61 @@ def test_pool_never_repeats_a_nonce_and_decrypts_to_its_records():
     ks = ref_pasta.keystream(h.pasta_key, nonces, 1, h.config["t"], "cpu").numpy()
     for (i, _, sym), k in zip(got, ks):
         assert np.array_equal((sym.astype(np.int64) - k) % h.config["t"], pool.records[i])
+
+
+# sha256 of what a PASTA pool and the reference make at a small size, taken
+# before the harness took BFV uploads and the reference a t up to 2^50: the
+# benchmark's keys, the PASTA key, the records, every request's symmetric
+# ciphertexts (one past the pool's end, made inline), and the records
+# encoded, encrypted and decrypted (plaintexts, noise shares) by the reference
+POOL_DIGESTS = {
+    "ecg_1fc.b64": ({"n": 1024, "data_limbs": 3}, {"records_per_request": 3},
+                    "18c9681b5249e37759416651f44619b5e9ddafabd9e3bf65ac60c697e935640c"),
+    "mnist_2fc.b4": ({"n": 1024, "data_limbs": 4, "input_words": 200}, {"records_per_request": 2},
+                     "b3783e850bfeb325a71c1c8f0575f3c9750959041ee5c8dcf24aa8730d24b5b2"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(POOL_DIGESTS))
+def test_pasta_pool_and_reference_keep_their_bits(cell):
+    config, traffic, want = POOL_DIGESTS[cell]
+    loaded = harness.load_cell(cell)
+    loaded["config"].update(config)
+    loaded["traffic"].update(traffic)
+    h = harness.Harness(loaded, 2**31 + 19, "cpu")
+    pool = harness.Pool(h, 3, 1000)
+    got = [pool.next() for _ in range(4)]
+    d = hashlib.sha256()
+    for x in (h.s, h.pk.numpy(), h.pasta_key, pool.records, *[u for _, _, u in got]):
+        d.update(np.ascontiguousarray(x).tobytes())
+    values = torch.as_tensor(pool.records.astype(np.int64)).reshape(-1, pool.records.shape[-1])
+    pt = h.scheme.slots.encode(values)
+    ct = h.scheme.encrypt(h.pk, pt, h.gen)
+    m, share = h.scheme.decrypt(h.s_dev, ct)
+    for x in (pt, ct, m, share, h.scheme.slots.decode(m)):
+        d.update(np.ascontiguousarray(x.numpy()).tobytes())
+    assert d.hexdigest() == want
+
+
+def test_bfv_pool_decrypts_to_its_records():
+    """BFV uploads: int32 [2, B, k, N] on the host, record b of request i in
+    slots [0, L) of ciphertext b, one request past the pool's end made
+    inline; no PASTA key, and none to encrypt for a transcipher."""
+    loaded = harness.load_cell("ecg_1fc.b64")
+    loaded["config"].update(n=1024, data_limbs=3, upload="bfv")
+    loaded["traffic"].update(records_per_request=3)
+    h = harness.Harness(loaded, 2**31 + 23, "cpu")
+    pool = harness.Pool(h, 2, 1000)
+    got = [pool.next() for _ in range(3)]
+    assert [n for _, n, _ in got] == [1000, 1001, 1002] and len(pool.records) == 3
+    for i, _, up in got:
+        assert up.dtype == torch.int32 and up.device.type == "cpu" and tuple(up.shape) == (2, 3, 3, 1024)
+        m, share = h.scheme.decrypt(h.s_dev, up)
+        assert torch.equal(h.scheme.slots.decode(m)[:, :128], torch.as_tensor(pool.records[i], dtype=torch.int64))
+        assert float(share.max()) < 1e-6
+    assert not hasattr(h, "pasta_key")
+    with pytest.raises(ValueError, match="bfv uploads"):
+        h.encrypted_pasta_key()
 
 
 def test_run_fails_without_a_card():

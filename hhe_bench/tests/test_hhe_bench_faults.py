@@ -1,6 +1,7 @@
 """A run whose timed path is broken underneath comes out not correct: the
 whole run but the look for a card, on the CPU at a small size (N=1024, 11
-limbs, 4 records a request), once for each fault the cells can have.  The
+limbs, 4 records a request), once for each fault the cells can have, and
+once for each fault of the evaluation with the users' BFV uploads.  The
 exchange between cards is not among them: every cell runs on one card."""
 
 import pytest
@@ -17,10 +18,10 @@ def broken(fault):
         request = entry.request
         q = h.scheme.qcol.to(torch.int32)
 
-        def faulty(nonce, sym, span, sync):
+        def faulty(nonce, upload, span, sync):
             if fault == "transcipher_other_nonce":  # the answer altered where it is made
-                return request(nonce + 1, sym, span, sync)
-            data, outs = request(nonce, sym, span, sync)
+                return request(nonce + 1, upload, span, sync)
+            data, outs = request(nonce, upload, span, sync)
             out = torch.cat(outs, 1)  # the results in record order
             if fault == "state_unchanged":  # the evaluation returns its input
                 out = data.clone()
@@ -40,6 +41,14 @@ def broken(fault):
 def test_fault_is_not_correct(fault):
     r = harness.run("ecg_1fc.b64", 2**31 + 11, 0.01, False, device="cpu", config_overrides=SMALL,
                     traffic_overrides=FEW, patch=broken(fault))
+    assert not r["correct"], (fault, r["checks"])
+
+
+@pytest.mark.parametrize("fault", ("state_unchanged", "half_batch", "output_altered"))
+def test_fault_is_not_correct_with_bfv_uploads(fault):
+    r = harness.run("ecg_1fc.b64", 2**31 + 11, 0.01, False, device="cpu",
+                    config_overrides={**SMALL, "upload": "bfv"}, traffic_overrides=FEW,
+                    patch=broken(fault))
     assert not r["correct"], (fault, r["checks"])
 
 

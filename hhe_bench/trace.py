@@ -8,7 +8,8 @@ import bisect
 import collections
 from typing import Dict, List, Tuple
 
-SPANS = ("window", "fetch", "decompose", "eval", "check_copy")  # the benchmark's record_function names
+# the benchmark's record_function names
+SPANS = ("window", "fetch", "upload", "decompose", "eval", "check_copy")
 TOP = 10  # entries of each breakdown list
 
 Interval = Tuple[int, int]
@@ -62,7 +63,12 @@ class Trace:
     (start, end, name) of every host event, spans included; ``start`` and
     ``end``: the "window" span's.  The "check_copy" spans, in which picked
     answers are copied to the host for the check, are not the window's:
-    their time and their device operations are left out."""
+    their time and their device operations are left out.  A device
+    operation is a check copy's where the host operation that launched it
+    started inside a "check_copy" span: the device's clock, converted to
+    the host's, may stray by a millisecond and more, so the operation's own
+    start cannot tell.  Device time that still falls inside a "check_copy"
+    span is not the window's either (``busy_s``)."""
 
     def __init__(self, prof, spans=SPANS):
         from torch.autograd import DeviceType
@@ -70,6 +76,8 @@ class Trace:
         self.device: List[Tuple[str, int, int]] = []
         self.spans: Dict[str, List[Interval]] = collections.defaultdict(list)
         self.host: List[Tuple[int, int, str]] = []
+        launched_at: Dict[int, int] = {}  # a host operation's correlation id -> its start
+        links: List[int] = []  # of each device operation: the correlation id of its host operation
         for ev in prof.profiler.kineto_results.events():
             name = ev.name()
             start, end = _ns(ev)
@@ -77,11 +85,15 @@ class Trace:
                 self.host.append((start, end, name))
                 if name in spans:
                     self.spans[name].append((start, end))
+                if ev.linked_correlation_id() == 0 and ev.correlation_id() > 0:  # the host's own
+                    launched_at[ev.correlation_id()] = start
             elif name not in spans:  # a span's range on the device is no operation
                 self.device.append((name, start, end))
+                links.append(ev.linked_correlation_id())
         (self.start, self.end), = self.spans.pop("window")
         self.paused = union(self.spans.pop("check_copy", []))
-        self.device = [d for d in self.device if not covered(self.paused, d[1], d[1] + 1)]
+        at = [launched_at.get(link, d[1]) for d, link in zip(self.device, links)]
+        self.device = [d for d, a in zip(self.device, at) if not covered(self.paused, a, a + 1)]
         self.busy = union([(s, e) for _, s, e in self.device])
 
     @property
@@ -90,7 +102,14 @@ class Trace:
 
     @property
     def busy_s(self) -> float:
-        return covered(self.busy, self.start, self.end) / 1e9
+        """Seconds of the window, less its "check_copy" spans, in which an
+        operation ran on the device: at most ``window_s``."""
+        ns = covered(self.busy, self.start, self.end)
+        for s, e in self.paused:
+            s, e = max(s, self.start), min(e, self.end)
+            if s < e:
+                ns -= covered(self.busy, s, e)
+        return ns / 1e9
 
     def device_ms(self, keep) -> float:
         """ms of the device operations whose name ``keep`` accepts."""
@@ -103,7 +122,7 @@ class Trace:
             tot[name[:160]] += (e - s) / 1e9
         return [[n, v] for n, v in tot.most_common(TOP)]
 
-    def idle_gaps(self, spans=("fetch", "decompose", "eval")) -> List[list]:
+    def idle_gaps(self, spans=("fetch", "upload", "decompose", "eval")) -> List[list]:
         """Seconds with no device operation, by what the host was doing: the
         benchmark's span and the innermost host operation open at the gap's
         start; the TOP labels by their summed seconds."""
