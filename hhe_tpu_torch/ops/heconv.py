@@ -30,16 +30,28 @@ mod each q_i and taken to the NTT + Montgomery domain by ``ntt.ntt_fwd``.
 
 from __future__ import annotations
 
+import collections
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import bfv_eval, helin, ntt
 from .bfv import Ciphertext, Context, KSwitchKey
 from .modular import mont_mul
 
 I64 = torch.int64
+
+# ciphertext rows key-switched, by stage: a rotation or relinearisation of a
+# ciphertext [2, C, k, N] counts C rows ("conv": the taps' rotations,
+# "square": the relinearisations, "fc": the rotate-sum's rotations)
+KEYSWITCH_ROWS: collections.Counter = collections.Counter()
+
+
+def _rows(ct: Ciphertext) -> int:
+    return math.prod(ct.data.shape[1:-2])
 
 
 class ConvSpec(NamedTuple):
@@ -152,17 +164,24 @@ def he_conv2d(
     chain, value for value."""
     tb = ctx.tb_q
     acc = None  # NTT-domain accumulator [size, Co, k, N], int64
-    for t_i, off in enumerate(conv_tap_offsets(spec, img_w)):
-        rot = ct if off == 0 else bfv_eval.rotate_rows(ctx, ct, off, gks)
-        f = ntt.ntt_fwd(rot.data, tb)  # [size, Ci, k, N]
-        g = mont_mul(f[:, :, None], pts[t_i][None], tb.q, tb.qinv_neg).sum(1, dtype=I64)
-        acc = g if acc is None else acc + g
-    return Ciphertext(ntt.ntt_inv(acc % tb.q, tb))
+    with trace.span("hhe.hcnn.conv"):
+        for t_i, off in enumerate(conv_tap_offsets(spec, img_w)):
+            if off:
+                rot = bfv_eval.rotate_rows(ctx, ct, off, gks)
+                KEYSWITCH_ROWS["conv"] += _rows(ct)
+            else:
+                rot = ct
+            f = ntt.ntt_fwd(rot.data, tb)  # [size, Ci, k, N]
+            g = mont_mul(f[:, :, None], pts[t_i][None], tb.q, tb.qinv_neg).sum(1, dtype=I64)
+            acc = g if acc is None else acc + g
+        return Ciphertext(ntt.ntt_inv(acc % tb.q, tb))
 
 
 def he_square(ctx: Context, ct: Ciphertext, rk: KSwitchKey) -> Ciphertext:
     """Square + relinearize; works on channel-batched tensors [size, Co, k, N]."""
-    return bfv_eval.relinearize(ctx, bfv_eval.square(ctx, ct), rk)
+    with trace.span("hhe.hcnn.square"):
+        KEYSWITCH_ROWS["square"] += _rows(ct)
+        return bfv_eval.relinearize(ctx, bfv_eval.square(ctx, ct), rk)
 
 
 def fc_plaintexts(
@@ -196,10 +215,12 @@ def he_fc_from_conv(
     class-batched ciphertext [size, classes, k, N]; after the log-depth
     rotate-sum every slot of row 0 holds the class logit."""
     tb = ctx.tb_q
-    f = ntt.ntt_fwd(ct.data, tb)  # [size, Co, k, N]
-    s = mont_mul(f[:, None], fc_pts[None], tb.q, tb.qinv_neg).sum(2, dtype=I64)
-    summed = Ciphertext(ntt.ntt_inv(s % tb.q, tb))  # [size, classes, k, N]
-    return helin.encrypted_vec_sum_log(ctx, summed, gks)
+    with trace.span("hhe.hcnn.fc"):
+        f = ntt.ntt_fwd(ct.data, tb)  # [size, Co, k, N]
+        s = mont_mul(f[:, None], fc_pts[None], tb.q, tb.qinv_neg).sum(2, dtype=I64)
+        summed = Ciphertext(ntt.ntt_inv(s % tb.q, tb))  # [size, classes, k, N]
+        KEYSWITCH_ROWS["fc"] += _rows(summed) * int(math.log2(ctx.n // 2))  # the rotate-sum's
+        return helin.encrypted_vec_sum_log(ctx, summed, gks)
 
 
 # ---------------------------------------------------------------------------

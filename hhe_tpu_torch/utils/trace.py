@@ -18,12 +18,13 @@ they cost a flag check each.
 - Names are fixed strings that start with ``hhe.``; none holds a nonce or a
   shape, so that the trace sums them by name.  Nesting gives each span its
   parent; the entry's span (``hhe.csp_decompose``, ``hhe.csp_eval_1fc``,
-  ``hhe.csp_eval_2fc``) gives the request.
+  ``hhe.csp_eval_2fc``, ``hhe.csp_eval_hcnn``) gives the request.
 - Counters: the port's counter dicts, counted always (a dict increment) in
   their own modules: K1-K6's launch counts (``graphs.COUNTERS``), the
   graph units' replays, captures and replayed launches, the PASTA block
   expansions, the blocks whose round constants were made on the device or
-  on the host, and the host-to-device uploads.  ``counts()`` gives each one's
+  on the host, the host-to-device uploads, and the HCNN's key-switched
+  ciphertext rows by stage.  ``counts()`` gives each one's
   growth over the last traced stretch: from the first span that saw a
   profiler recording to the first span (or ``counts()``) that saw it stop,
   or to now while it records.
@@ -57,7 +58,7 @@ def span(name: str):
 
 def _registry() -> Dict[str, dict]:
     """The counter dicts by the names ``counts()`` gives them."""
-    from ..ops import mod_kernels, ntt, ntt_kernels, pasta, transcipher
+    from ..ops import heconv, mod_kernels, ntt, ntt_kernels, pasta, transcipher
     from . import graphs
 
     return {"ntt_kernels.LAUNCHES": ntt_kernels.LAUNCHES,
@@ -70,7 +71,8 @@ def _registry() -> Dict[str, dict]:
             "graphs.REPLAYED": graphs.REPLAYED,
             "pasta.EXPANSIONS": pasta.EXPANSIONS,
             "transcipher.RC_BLOCKS": transcipher.RC_BLOCKS,
-            "ntt.UPLOADS": ntt.UPLOADS}
+            "ntt.UPLOADS": ntt.UPLOADS,
+            "heconv.KEYSWITCH_ROWS": heconv.KEYSWITCH_ROWS}
 
 
 def _snapshot() -> Dict[str, int]:

@@ -15,21 +15,86 @@ logits EXACTLY (the reference's acc vs acc_he comparison,
 keygen, plaintext preparation, and per image the host encryption, the
 device evaluation and the decrypt + decode; and gives the noise budget
 after each stage.
+
+The CSP's path is ``prepare_hcnn`` once (the analyst's model as conv and FC
+plaintexts on the device), then ``csp_eval_hcnn`` an uploaded image: one
+BFV ciphertext [2, 1, k, N], the image row-major in slots [0, H W), to the
+class-batched logits [2, classes, k, N].  ``hcnn_stages`` is its one
+composition of the layers, which the demo steps through stage by stage.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..models import loaders
 from ..ops import bfv, heconv, primes
-from ..ops.bfv import Ciphertext
+from ..ops.bfv import Ciphertext, Context
+from ..utils import trace
 
 STAGES = ("fresh", "conv1", "square1", "conv2", "square2", "fc")
+STRIDE = 2  # both convs' (speedtest_he_mnist_works.py:277-357)
+
+
+class HCNNModel(NamedTuple):
+    """The analyst's HCNN as the CSP holds it, on the context's device."""
+
+    spec1: heconv.ConvSpec
+    spec2: heconv.ConvSpec
+    pts1: torch.Tensor  # [taps, 1, C1, k, N] NTT + Montgomery
+    pts2: torch.Tensor  # [taps, C1, C2, k, N]
+    fc_pts: torch.Tensor  # [classes, C2, k, N]
+    img_w: int
+
+
+def hcnn_specs(k1: np.ndarray, k2: np.ndarray, img: int = 28) -> Tuple[heconv.ConvSpec, heconv.ConvSpec]:
+    """The two conv layers on an img x img image's slot grid: conv 1 on the
+    image, conv 2 on conv 1's output, which stays on the image's grid
+    dilated by the stride."""
+    spec1 = heconv.ConvSpec(k1, (1, img, img), STRIDE, 1)
+    return spec1, heconv.ConvSpec(k2, heconv.conv_out_shape(spec1), STRIDE, STRIDE)
+
+
+def prepare_hcnn(ctx: Context, k1: np.ndarray, k2: np.ndarray, fc: np.ndarray,
+                 img: int = 28) -> HCNNModel:
+    """Integer weights k1 [C1, 1, 5, 5], k2 [C2, C1, 5, 5] and fc [classes,
+    C2 * oh * ow] (the flatten channel-major) -> the model's plaintexts."""
+    spec1, spec2 = hcnn_specs(k1, k2, img)
+    return HCNNModel(spec1, spec2, heconv.conv_plaintexts(ctx, spec1, img),
+                     heconv.conv_plaintexts(ctx, spec2, img),
+                     heconv.fc_plaintexts(ctx, fc, spec2, img), img)
+
+
+def hcnn_stages(stack, ct: Ciphertext, model: HCNNModel) -> Iterator[Tuple[str, Ciphertext]]:
+    """(stage, its output) for STAGES[1:] in order, from the encrypted image
+    ``ct`` [2, 1, k, N]: the convs' channels batched [2, C, k, N], and last
+    the FC's classes [2, classes, k, N] after the rotate-sum, every slot of
+    row 0 holding that class's logit.  ``stack`` gives the context and the
+    relinearisation and Galois keys."""
+    ctx, w = stack.ctx, model.img_w
+    a = heconv.he_conv2d(ctx, ct, model.spec1, model.pts1, stack.gks, w)
+    yield "conv1", a
+    a = heconv.he_square(ctx, a, stack.rk)
+    yield "square1", a
+    a = heconv.he_conv2d(ctx, a, model.spec2, model.pts2, stack.gks, w)
+    yield "conv2", a
+    a = heconv.he_square(ctx, a, stack.rk)
+    yield "square2", a
+    yield "fc", heconv.he_fc_from_conv(ctx, a, model.fc_pts, stack.gks)
+
+
+def csp_eval_hcnn(stack, ct: Ciphertext, model: HCNNModel) -> Ciphertext:
+    """The CSP's evaluation of one uploaded image: ``ct`` [2, 1, k, N] on
+    the device -> the class-batched logits [2, classes, k, N]."""
+    with trace.span("hhe.csp_eval_hcnn"):
+        for _, out in hcnn_stages(stack, ct, model):
+            pass
+        return out
 
 
 def conv_plain_t(n: int = 16384, bits: int = 47) -> int:
@@ -77,6 +142,7 @@ def he_mnist_conv_inference(
     is the directory of the MNIST test split's idx files (default: under
     ``loaders.REFERENCE_ROOT``)."""
     from . import qat as qat_mod
+    from .hhe_inference import HHEStack
 
     root = {} if mnist_root is None else {"root": mnist_root}
     x_all, y_all = loaders.load_mnist_test(limit=train_subset + 200, **root)
@@ -104,17 +170,14 @@ def he_mnist_conv_inference(
     t0 = time.perf_counter()
     sk = ctx.keygen_secret()
     pk = ctx.keygen_public(sk)
-    spec1 = heconv.ConvSpec(qat.k1_int, (1, 28, 28), 2, 1)
-    spec2 = heconv.ConvSpec(qat.k2_int, (5, 12, 12), 2, 2)
-    elts = heconv.conv_galois_elts(ctx, [spec1, spec2], 28)
+    elts = heconv.conv_galois_elts(ctx, hcnn_specs(qat.k1_int, qat.k2_int), 28)
     rk, gks = ctx.keygen_eval_keys_device(sk, elts, include_relin=True, seed=seed)
+    stack = HHEStack(ctx, sk, pk, rk, gks, None)
     ctx.synchronize()
     keygen_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    pts1 = heconv.conv_plaintexts(ctx, spec1, 28)
-    pts2 = heconv.conv_plaintexts(ctx, spec2, 28)
-    fc_pts = heconv.fc_plaintexts(ctx, qat.fc_int, spec2, 28)
+    model = prepare_hcnn(ctx, qat.k1_int, qat.k2_int, qat.fc_int)
     ctx.synchronize()
     prep_s = time.perf_counter() - t0
 
@@ -133,11 +196,8 @@ def he_mnist_conv_inference(
         ct = Ciphertext(ct.data[:, None])  # [size, Ci=1, k, N]
         ctx.synchronize()
         t1 = time.perf_counter()
-        a = heconv.he_conv2d(ctx, ct, spec1, pts1, gks, 28)
-        sq1 = heconv.he_square(ctx, a, rk)
-        b = heconv.he_conv2d(ctx, sq1, spec2, pts2, gks, 28)
-        sq2 = heconv.he_square(ctx, b, rk)
-        logits_ct = heconv.he_fc_from_conv(ctx, sq2, fc_pts, gks)
+        outs = dict(hcnn_stages(stack, ct, model))
+        logits_ct = outs["fc"]
         ctx.synchronize()
         t2 = time.perf_counter()
         m = ctx.decrypt_batch(sk, logits_ct)  # [classes, N] mod t
@@ -146,8 +206,9 @@ def he_mnist_conv_inference(
         spent["encrypt"] += t1 - t0
         spent["eval"] += t2 - t1
         spent["decrypt"] += t3 - t2
-        for stage, c in zip(STAGES, (ct, a, sq1, b, sq2, logits_ct)):
-            bits = ctx.noise_budget(sk, Ciphertext(c.data[:, 0]))
+        outs["fresh"] = ct
+        for stage in STAGES:
+            bits = ctx.noise_budget(sk, Ciphertext(outs[stage].data[:, 0]))
             budgets[stage] = min(budgets.get(stage, bits), bits)
     per_image = sum(spent.values()) / n_images
     noise_left = budgets["fc"]
