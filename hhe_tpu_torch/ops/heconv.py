@@ -12,12 +12,14 @@ BFV n=16384, t_bits=47):
   rotation of the encrypted input, shared by every channel.
 - Stride-s outputs stay on the input's slot grid (the reference's
   "data_stride" dilation), so the next layer scales its tap offsets.
-- Channels are batched ciphertext tensors ``[size, C, k, N]``: every output
-  channel is one broadcast product per tap, the taps accumulate in the NTT
-  domain, and one inverse NTT ends the layer.
+- Channels are batched ciphertext tensors ``[size, C, k, N]``.  A layer's
+  taps go through the forward NTT in groups, and each group contracts over
+  (tap, in-channel) against its plaintexts in one ``mont_mac`` (K4 on the
+  card), every output channel at once; one ``sum_mod`` (K5) adds the
+  groups, and one inverse NTT ends the layer.
 - The FC scatters each class's weights to the slots where the flattened conv
-  output lives: one batched product, a channel sum and one log-depth
-  rotate-sum for all classes.
+  output lives: the channel contraction in ``mont_mac`` groups as the
+  conv's, and one log-depth rotate-sum for all classes.
 
 The weighted-mask plaintexts are the JAX package's, array for array, formed
 another way.  The batch encoder is linear mod t, so ``encode(mask * w) =
@@ -38,9 +40,9 @@ import numpy as np
 import torch
 
 from ..utils import trace
-from . import bfv_eval, helin, ntt
+from . import bfv_eval, helin, mod_kernels, ntt
 from .bfv import Ciphertext, Context, KSwitchKey
-from .modular import mont_mul
+from .modular import mont_mac, sum_mod
 
 I64 = torch.int64
 
@@ -48,10 +50,38 @@ I64 = torch.int64
 # ciphertext [2, C, k, N] counts C rows ("conv": the taps' rotations,
 # "square": the relinearisations, "fc": the rotate-sum's rotations)
 KEYSWITCH_ROWS: collections.Counter = collections.Counter()
+# the contractions (K4 launches on the card) and the terms they summed, by
+# stage: "<stage>.launches", "<stage>.terms" ("conv1", "conv2", "fc"; "conv"
+# for a conv layer given no stage name)
+CONTRACTIONS: collections.Counter = collections.Counter()
 
 
 def _rows(ct: Ciphertext) -> int:
     return math.prod(ct.data.shape[1:-2])
+
+
+def group_size(count: int, per: int) -> int:
+    """How many of a contraction's ``count`` items (a conv layer's taps of
+    ``per`` in-channel terms each, or the FC's channels, ``per`` 1) one
+    ``mont_mac`` sums: the most, dividing ``count``, whose terms' staged tile
+    fits a 64-thread fan-out block in ``mod_kernels.SMEM_BUDGET``, which
+    leaves several blocks an SM and the loads in flight that the HBM rate
+    needs.  A ``sum_mod`` adds the groups."""
+    fits = [d for d in range(1, count + 1) if count % d == 0
+            and mod_kernels.fan_smem("fanout", d * per, 0, 64) <= mod_kernels.SMEM_BUDGET]
+    return max(fits, default=1)
+
+
+def _contract(stage: str, a, b, tb, dim: int, out: torch.Tensor):
+    """``out`` = the sum over axis ``dim`` of mont_mul(a, b) mod q."""
+    mont_mac(a, b, tb.q, tb.qinv_neg, dim, out=out)
+    CONTRACTIONS[f"{stage}.launches"] += 1
+    CONTRACTIONS[f"{stage}.terms"] += a.shape[dim]
+
+
+def _sum_groups(acc: torch.Tensor, tb) -> torch.Tensor:
+    """The groups' partial contractions [G, ...] added mod q."""
+    return acc[0] if len(acc) == 1 else sum_mod(acc, tb.q, 0)
 
 
 class ConvSpec(NamedTuple):
@@ -152,6 +182,7 @@ def he_conv2d(
     pts: torch.Tensor,
     gks: Dict[int, KSwitchKey],
     img_w: int,
+    stage: str = "conv",
 ) -> Ciphertext:
     """Rotation-based encrypted conv (reference rotation_conv,
     ``speedtest_he_mnist_works.py:277-357``).
@@ -159,22 +190,30 @@ def he_conv2d(
     ct: [size, Ci, k, N] (channel-batched; wrap a single packed image as
     Ci = 1).  One batched rotation per spatial tap serves every channel.
     Returns [size, Co, k, N] — output channels batched in one tensor.  The
-    NTT-domain accumulator sums canonical residues in int64 (25 taps x Ci
-    terms below 2^31 each) and reduces once: the JAX package's add_mod
-    chain, value for value."""
+    taps go in groups of ``group_size``: a group's rotations, stacked
+    [size, T, Ci, k, N], take one forward NTT and contract over (tap,
+    in-channel) against its plaintexts [T, Ci, Co, k, N] in one
+    ``mont_mac``; ``sum_mod`` adds the groups.  Both sum the canonical
+    products exactly and reduce once: the JAX package's add_mod chain, value
+    for value.  ``stage`` names the layer in ``CONTRACTIONS``."""
     tb = ctx.tb_q
-    acc = None  # NTT-domain accumulator [size, Co, k, N], int64
+    offs = conv_tap_offsets(spec, img_w)
+    size, ci, *kn = ct.data.shape
+    taps = group_size(len(offs), ci)
     with trace.span("hhe.hcnn.conv"):
-        for t_i, off in enumerate(conv_tap_offsets(spec, img_w)):
-            if off:
-                rot = bfv_eval.rotate_rows(ctx, ct, off, gks)
-                KEYSWITCH_ROWS["conv"] += _rows(ct)
-            else:
-                rot = ct
-            f = ntt.ntt_fwd(rot.data, tb)  # [size, Ci, k, N]
-            g = mont_mul(f[:, :, None], pts[t_i][None], tb.q, tb.qinv_neg).sum(1, dtype=I64)
-            acc = g if acc is None else acc + g
-        return Ciphertext(ntt.ntt_inv(acc % tb.q, tb))
+        acc = torch.empty((len(offs) // taps, size, pts.shape[2], *kn), dtype=torch.int32,
+                          device=ct.data.device)
+        for g in range(len(acc)):
+            rots = []
+            for off in offs[g * taps:(g + 1) * taps]:
+                if off:
+                    rots.append(bfv_eval.rotate_rows(ctx, ct, off, gks).data)
+                    KEYSWITCH_ROWS["conv"] += _rows(ct)
+                else:
+                    rots.append(ct.data)
+            f = ntt.ntt_fwd(torch.stack(rots, 1), tb).view(size, taps * ci, 1, *kn)
+            _contract(stage, f, pts[g * taps:(g + 1) * taps].flatten(0, 1), tb, 1, acc[g])
+        return Ciphertext(ntt.ntt_inv(_sum_groups(acc, tb), tb))
 
 
 def he_square(ctx: Context, ct: Ciphertext, rk: KSwitchKey) -> Ciphertext:
@@ -213,12 +252,18 @@ def he_fc_from_conv(
 
     ct: [size, Co, k, N]; fc_pts: [classes, Co, k, N].  Returns a
     class-batched ciphertext [size, classes, k, N]; after the log-depth
-    rotate-sum every slot of row 0 holds the class logit."""
+    rotate-sum every slot of row 0 holds the class logit.  The channels
+    contract in ``mont_mac`` groups of ``group_size`` as a conv's taps."""
     tb = ctx.tb_q
     with trace.span("hhe.hcnn.fc"):
-        f = ntt.ntt_fwd(ct.data, tb)  # [size, Co, k, N]
-        s = mont_mul(f[:, None], fc_pts[None], tb.q, tb.qinv_neg).sum(2, dtype=I64)
-        summed = Ciphertext(ntt.ntt_inv(s % tb.q, tb))  # [size, classes, k, N]
+        f = ntt.ntt_fwd(ct.data, tb)[:, None]  # [size, 1, Co, k, N]
+        size, _, co, *kn = f.shape
+        per = group_size(co, 1)
+        acc = torch.empty((co // per, size, fc_pts.shape[0], *kn), dtype=torch.int32, device=f.device)
+        for g in range(len(acc)):
+            _contract("fc", f[:, :, g * per:(g + 1) * per], fc_pts[:, g * per:(g + 1) * per], tb, 2,
+                      acc[g])
+        summed = Ciphertext(ntt.ntt_inv(_sum_groups(acc, tb), tb))  # [size, classes, k, N]
         KEYSWITCH_ROWS["fc"] += _rows(summed) * int(math.log2(ctx.n // 2))  # the rotate-sum's
         return helin.encrypted_vec_sum_log(ctx, summed, gks)
 

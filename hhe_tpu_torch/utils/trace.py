@@ -24,7 +24,7 @@ they cost a flag check each.
   graph units' replays, captures and replayed launches, the PASTA block
   expansions, the blocks whose round constants were made on the device or
   on the host, the host-to-device uploads, and the HCNN's key-switched
-  ciphertext rows by stage.  ``counts()`` gives each one's
+  ciphertext rows and contractions by stage.  ``counts()`` gives each one's
   growth over the last traced stretch: from the first span that saw a
   profiler recording to the first span (or ``counts()``) that saw it stop,
   or to now while it records.
@@ -72,7 +72,8 @@ def _registry() -> Dict[str, dict]:
             "pasta.EXPANSIONS": pasta.EXPANSIONS,
             "transcipher.RC_BLOCKS": transcipher.RC_BLOCKS,
             "ntt.UPLOADS": ntt.UPLOADS,
-            "heconv.KEYSWITCH_ROWS": heconv.KEYSWITCH_ROWS}
+            "heconv.KEYSWITCH_ROWS": heconv.KEYSWITCH_ROWS,
+            "heconv.CONTRACTIONS": heconv.CONTRACTIONS}
 
 
 def _snapshot() -> Dict[str, int]:

@@ -77,11 +77,11 @@ def hcnn_stages(stack, ct: Ciphertext, model: HCNNModel) -> Iterator[Tuple[str, 
     row 0 holding that class's logit.  ``stack`` gives the context and the
     relinearisation and Galois keys."""
     ctx, w = stack.ctx, model.img_w
-    a = heconv.he_conv2d(ctx, ct, model.spec1, model.pts1, stack.gks, w)
+    a = heconv.he_conv2d(ctx, ct, model.spec1, model.pts1, stack.gks, w, "conv1")
     yield "conv1", a
     a = heconv.he_square(ctx, a, stack.rk)
     yield "square1", a
-    a = heconv.he_conv2d(ctx, a, model.spec2, model.pts2, stack.gks, w)
+    a = heconv.he_conv2d(ctx, a, model.spec2, model.pts2, stack.gks, w, "conv2")
     yield "conv2", a
     a = heconv.he_square(ctx, a, stack.rk)
     yield "square2", a

@@ -13,7 +13,9 @@ under ``torch.profiler``, shared by every case:
   (every pixel 3, every weight -2) Python's integers;
 - ``heconv.KEYSWITCH_ROWS`` grows by the rows the specs key-switch;
 - the spans ``hhe.csp_eval_hcnn`` and ``hhe.hcnn.*`` appear in the profile,
-  nested in the request's, and ``trace.counts()`` gives the counter."""
+  nested in the request's, and ``trace.counts()`` gives the counters; in
+  it ``heconv.CONTRACTIONS`` grows by the contractions (K4 launches on a
+  card) and terms the specs imply."""
 
 import math
 
@@ -64,14 +66,17 @@ def hcnn():
         model = he_conv.prepare_hcnn(ctx, k1, k2, fc, IMG)
         ct = Ciphertext(ctx.encrypt(pk, ctx.encode(x.reshape(-1))).data[:, None])  # [2, 1, k, N]
         before = dict(heconv.KEYSWITCH_ROWS)
+        before_c = dict(heconv.CONTRACTIONS)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = he_conv.csp_eval_hcnn(stack, ct, model)
         counts = trace.counts()
         grew = {k: v - before.get(k, 0) for k, v in heconv.KEYSWITCH_ROWS.items()}
+        grew_c = {k: v - before_c.get(k, 0) for k, v in heconv.CONTRACTIONS.items()
+                  if v != before_c.get(k, 0)}
         m = ctx.decrypt_batch(sk, out)  # [classes, N] mod t
         slots = ctx.decode_signed_batch(m)[:, : N // 2]
         yield dict(ctx=ctx, specs=specs, weights=(k1, k2, fc), x=x, out=out, slots=slots,
-                   prof=prof, counts=counts, grew=grew)
+                   prof=prof, counts=counts, grew=grew, grew_c=grew_c)
     finally:
         torch.set_num_threads(threads)
 
@@ -124,3 +129,18 @@ def test_spans_and_counter_in_the_trace(hcnn):
     assert all(s0 <= s and e <= e0 for n, s, e in events if n.startswith("hhe.hcnn."))
     got = {k: v for k, v in hcnn["counts"].items() if k.startswith("heconv.KEYSWITCH_ROWS.")}
     assert got == {f"heconv.KEYSWITCH_ROWS.{k}": v for k, v in hcnn["grew"].items()}
+    # one request's contractions: a launch a group of taps (conv) or channels
+    # (FC), each summing the group's terms
+    spec1, spec2 = hcnn["specs"]
+    want = {}
+    for stage, count, per in (("conv1", 25, spec1.in_shape[0]), ("conv2", 25, spec2.in_shape[0]),
+                              ("fc", C2, 1)):
+        want[f"{stage}.launches"] = count // heconv.group_size(count, per)
+        want[f"{stage}.terms"] = count * per
+    assert want == {"conv1.launches": 1, "conv1.terms": 25, "conv2.launches": 5, "conv2.terms": 125,
+                    "fc.launches": 1, "fc.terms": C2}
+    assert hcnn["grew_c"] == want
+    got = {k: v for k, v in hcnn["counts"].items() if k.startswith("heconv.CONTRACTIONS.")}
+    assert got == {f"heconv.CONTRACTIONS.{k}": v for k, v in want.items()}
+    # at the model's widths (50 second-layer channels): 1 + 5 + 2 launches,
+    # 25 + 125 + 50 terms
