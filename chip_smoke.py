@@ -59,10 +59,8 @@ Phases (any failure propagates and the exit code is nonzero):
    transforms of M = 32 ... 256) equal to ``poly_mul_host``,
    ``keygen_public(mesh=)`` at the large preset cut to 3 limbs equal in
    bytes to the host path, ``csp_decompose(mesh=)`` on this stack equal to
-   the unsplit result, the host-expanded keystream
-   (``expand_on_device=False``) equal to the device-expanded one, and the
-   native PASTA expansion (which every phase must have used) against the
-   pure-Python one, ms each;
+   the unsplit result, and the native PASTA expansion (which every phase
+   must have used) against the pure-Python one, ms each;
    then the limb path at world size 1 (a one-rank NCCL group, the
    ("batch": 1, "limb": 1) mesh): the ``LimbView`` of the ECG stack must be
    split (its 13 limbs in one block), and the keystream of one block on the
@@ -91,8 +89,8 @@ Phases (any failure propagates and the exit code is nonzero):
    three secret keys must differ and K1-K6 must launch; per-party ms
    and per-edge MB, the decompose wall, evaluation ms a ciphertext (the
    CSP's unit replayed) and through the unit's body, the key set's
-   publish time, one result's noise budget, peak memory; the CSP's
-   per-ciphertext unit through ``check_unit``;
+   publish time, one result's noise budget, peak memory; the CSP's unit
+   (``csp_eval_1fc`` with the sum) through ``check_unit``;
    4c. the CLI: ``python -m hhe_tpu_torch.parties.cli`` csp, analyst and
    user as three processes on the card at the CLI's defaults (N=16384, 13
    limbs, --input-len 300, --rows 2) with surrogate CSVs; the analyst's
@@ -163,7 +161,9 @@ K5's gather, and K6 with addends only (``check_fused_modes``).
 A unit's replay adds to them (and to ``ShapeRecorder``'s calls per layout)
 what its capture counted, so they are an eager run's counts; each path of
 ``PATH_UNITS`` must replay its units (``graphs.REPLAYS``).
-Imports only ``hhe_tpu_torch``, ``torch``, ``numpy`` and the standard library.
+Imports only ``hhe_tpu_torch``, ``hhe_bench.frozen`` (the roofline
+arithmetic the benchmark froze), ``torch``, ``numpy`` and the standard
+library.
 """
 
 from __future__ import annotations
@@ -184,12 +184,9 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks: HBM rate (NVIDIA data sheet), and 32-bit integer multiplies
-# at 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper architecture white paper):
-# a quarter of the 67 TFLOP/s float32 rate, which counts an FMA as two flops
-# on 128 lanes per SM.
-HBM_BYTES_PER_S = 3.35e12
-INT32_MUL_PER_S = 132 * 64 * 1.98e9
+from hhe_bench.frozen import (HBM_BYTES_PER_S, bound, elem_args, kernel_family, launch_bound,
+                               mont_bound, words_bytes)
+
 L2_BYTES = 50 * 2**20  # H100 L2 cache
 
 B = 64  # samples per decompose, the JAX package's headline batch
@@ -298,7 +295,7 @@ PATH_UNITS = {
     "ecg": ("expand", "keystream", "finish", "eval_1fc"),
     "ecg_full": ("expand", "keystream", "finish", "eval_1fc"),
     "1fc": ("keystream_seeded", "finish", "eval_1fc"),
-    "parties": ("keystream_seeded", "finish", "csp_eval"),
+    "parties": ("keystream_seeded", "finish", "eval_1fc"),
     "fmnist_1fc": ("keystream_seeded", "finish"),
     "mnist_2fc": ("keystream_seeded", "finish"),
 }
@@ -892,27 +889,6 @@ ELEM_MODULI = {}
 DOWN_CONSTS = {}
 
 
-def elem_args(wrapper, args):
-    """(mode, {a, b, q, half, idx, sign, dim}) of a call of a K5 wrapper
-    (``mod_kernels.mod_elem`` / ``mod_center`` / ``mod_gather`` /
-    ``mod_sum``) on positional `args`."""
-    e = dict(b=0, half=0, idx=None, sign=None, dim=None)
-    if wrapper == "mod_elem":
-        mode, e["a"], e["b"], e["q"] = args
-    elif wrapper == "mod_center":
-        mode = "center"
-        e["a"], e["b"], e["q"], e["half"] = args
-    elif wrapper == "mod_gather":
-        mode = "gather"
-        a, idx, q, sign = (tuple(args) + (None, None))[:4]
-        e.update(a=a, idx=idx, q=0 if q is None else q, sign=sign)
-    else:
-        mode = "sum"
-        a, q, dim, idx, sign = (tuple(args) + (None, None))[:5]
-        e.update(a=a, q=q, dim=dim, idx=idx, sign=sign)
-    return mode, e
-
-
 def index_layout(x):
     """An index or mask as phase 7 keys it: None, or its layout (phase 7
     reuses the first tensor seen: the real permutation)."""
@@ -1068,38 +1044,6 @@ KERNELS = (
     ("ntt_fwd_top", "hhe_tpu/ops/ntt_pallas.py:146"),
     ("ntt_inv_top", "hhe_tpu/ops/ntt_pallas.py:197"),
 )
-
-
-def bound(shape, moduli, stages, ninv, table_bytes=None):
-    """Least time on the card (ms) for a pass over a [..., k, N] tensor: the
-    larger of the bytes over the HBM rate and the multiplies over the int32
-    multiply rate, and which of the two it is.  Bytes: the row tensor read
-    and written once, plus `table_bytes` (by default one twiddle table and
-    the per-limb constants).  Multiplies: 3 per butterfly (a Shoup product)
-    of the `stages` stages and, with `ninv`, 3 per coefficient for N^-1."""
-    n = shape[-1]
-    nrows = int(np.prod(shape[:-1]))
-    if table_bytes is None:
-        table_bytes = 4 * len(moduli) * (n + 3)
-    nbytes = 8 * nrows * n + table_bytes
-    muls = 3 * nrows * (n // 2) * stages + (3 * nrows * n if ninv else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MUL_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def launch_bound(name, shape, moduli):
-    """The bound of one launch of kernel `name`: the whole transform up to
-    N = 16384; above it the top pass's log2 P stages (and N^-1 for the
-    inverse's) or the tile kernel's other 14.  A top pass reads only the
-    Shoup pairs of psi_br[1 .. P-1] and q per limb, and the inverse's also
-    its two N^-1 pairs (``ntt.cu`` ``ntt_top``)."""
-    logn = shape[-1].bit_length() - 1
-    logp = max(0, logn - 14)
-    if name.endswith("_top"):
-        inv, k = name == "ntt_inv_top", len(moduli)
-        table_bytes = 8 * k * ((1 << logp) - 1) + 4 * k + (16 * k if inv else 0)
-        return bound(shape, moduli, logp, inv, table_bytes)
-    return bound(shape, moduli, logn - logp, name == "ntt_inv" and logp == 0)
 
 
 def rotating(fns):
@@ -1329,21 +1273,6 @@ MONT_KERNELS = (
 MONT_TOP = 10  # layouts checked per path besides the ECG path's (all of those)
 
 
-def mont_bound(p, a, b, q, qi):
-    """Least time on the card (ms) for one K3 / K4 launch of plan `p`: each
-    tensor operand's distinct words read once and the output written once
-    at the HBM rate, or three 32-bit multiplies a product at the int32
-    multiply rate; and which of the two it is."""
-    out = int(np.prod(p.shape))
-    nbytes = out * a.element_size()
-    for x in (a, b, q, qi):
-        if hasattr(x, "stride"):
-            nbytes += x.element_size() * int(np.prod([n for n, st in zip(x.shape, x.stride()) if st]))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * out * p.terms / INT32_MUL_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def mont_entry(key, calls, gen):
     """Phase 7 for one K3 / K4 layout `key` a path gave the kernels: its
     operands remade (random residues below the smallest modulus, through the
@@ -1506,13 +1435,6 @@ ELEM_KERNELS = (
                  ":117) and hhe_tpu/ops/rns.py:150 (reduce_u32)"),
     ("mod_down", "hhe_tpu/ops/bfv_eval.py:224 (XLA fusion of mod_down)"),
 )
-
-
-def words_bytes(x) -> int:
-    """Bytes of a tensor's distinct elements (0 for a Python int)."""
-    if not hasattr(x, "stride"):
-        return 0
-    return x.element_size() * int(np.prod([n for n, st in zip(x.shape, x.stride()) if st]))
 
 
 def remade(lay, bound, gen):
@@ -1903,9 +1825,8 @@ def phase_parallel(stack):
     ``keygen_public(sk, mesh=)`` at ``large_params(data_limbs=3)`` equal in
     bytes to the host path; on the ECG stack (N=16384, 13 limbs, B=64)
     ``csp_decompose(mesh=)`` equal to the unsplit result bit for bit (each
-    with its keystream evaluated afresh) and decrypting to its input, and
-    ``keystream_ct(expand_on_device=False)`` equal to the default; K1 and K2
-    must launch at M = 128 and 256, K3 and K4 at all.  Then, outside the counted run: the
+    with its keystream evaluated afresh) and decrypting to its input; K1
+    and K2 must launch at M = 128 and 256, K3 and K4 at all.  Then, outside the counted run: the
     native and the pure-Python PASTA block expansion, equal, ms each with
     the cache cleared (the native one must be what every earlier phase
     used), and the sharded transforms' and the single-card NTT's times."""
@@ -1973,14 +1894,6 @@ def phase_parallel(stack):
         if not np.array_equal(ctx.decode(ctx.decrypt(stack.sk, one))[: transcipher.T], x[5]):
             raise AssertionError("a sample of csp_decompose(mesh=) decrypts wrong")
         tc.clear_caches()
-        ks_host, stats["keystream_host_expansion_s"] = timed(
-            lambda: tc.keystream_ct(enc_key, nonce, 0, expand_on_device=False))
-        tc.clear_caches()
-        ks_dev, stats["keystream_device_expansion_s"] = timed(
-            lambda: tc.keystream_ct(enc_key, nonce, 0))
-        if not torch.equal(ks_host.data, ks_dev.data):
-            raise AssertionError("keystream_ct(expand_on_device=False) differs from the default")
-        tc.clear_caches()
     launches = launch_counts()
     ms = {(shape[-1], name) for name in ("ntt_fwd", "ntt_inv") for shape, _ in rec.calls[name]}
     for m in (128, 256):
@@ -1991,8 +1904,7 @@ def phase_parallel(stack):
         raise AssertionError(f"a modular kernel did not launch on the parallel path: {launches}")
     log(f"parallel ({stats['backend']}, world {stats['world_size']}): ShardedNtt at "
         f"{[n for n, _ in PARALLEL_NTTS]} equal to poly_mul_host, sharded keygen equal to the "
-        f"host's, csp_decompose(mesh=) and the host-expanded keystream equal to the unsplit "
-        f"ones; launches {launches}")
+        f"host's, csp_decompose(mesh=) equal to the unsplit one; launches {launches}")
 
     # outside the counted run: the PASTA block expansion, native against Python
     if not native.available() or pasta.EXPANSIONS["python"] or not pasta.EXPANSIONS["native"]:
@@ -2319,20 +2231,21 @@ def phase_parties():
         launches = launch_counts()
         stats["graphs"] = graph_counts("parties")
         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        # after the path: each analyst's per-ciphertext unit (the graph
+        # after the path: each analyst's 1FC unit with the sum (the graph
         # that evaluateModel* replayed) against its body, eagerly, on
         # EVAL_EAGER_CTS of its checkpoint's ciphertexts; the unit itself
-        # (unit 6) on two of the L=300 checkpoint's, through check_unit
+        # on two of the L=300 checkpoint's, through check_unit
         for L, (addr, path) in checkpoints.items():
             st_csp = csp.state(addr)
-            unit = csp._jit_eval(st_csp)
+            stk = st_csp.stack
+            unit = stk._jit_1fc_True
             with open(path, "rb") as f:
                 cts = serial.load_ciphertext_vec(f.read(), csp.ctx.device)[:EVAL_EAGER_CTS]
-            args = [(ct.data, st_csp.weight_cts[0], st_csp.rk, st_csp.gks) for ct in cts]
+            args = [(ct.data, st_csp.weight_cts[0].data, stk.rk, stk.gks) for ct in cts]
             stats["analysts"][L]["eval_eager_ms_per_ct"] = 1e3 * wall_s(
                 lambda: [unit.fn(*a) for a in args]) / len(args)
             if L == FC_L:
-                stats["graph_unit_csp_eval"] = check_unit(unit, args[0], args[1])
+                stats["graph_unit_eval_1fc"] = check_unit(unit, args[0], args[1])
         everyone = [t[3] for t in analysts] + users + [csp]
         timer, ledger = metrics.merge(timers=[p.timer for p in everyone],
                                       ledgers=[p.ledger for p in everyone])
@@ -3034,26 +2947,11 @@ def helin_weight(stack, w):
     return helin.encrypt_weight(stack.ctx, stack.pk, np.asarray(w)[None, :])[0]
 
 
-# a device kernel's family in a profile, the first that matches its name: the
-# port's kernels by their __global__ function (K3 and K4's forms are mont_*),
-# then PyTorch's; "int64 elementwise" counts, besides, the elementwise
-# kernels whose name carries a `long` type
-KERNEL_FAMILIES = (("ntt", ("ntt_",)), ("mont", ("mont_",)), ("mod_elem", ("mod_elem_kernel", "mod_fused_kernel")),
-                   ("mod_down", ("mod_down_kernel",)), ("index", ("index", "gather", "scatter")),
-                   ("copy/cat", ("CatArray", "copy", "Copy")),
-                   ("elementwise", ("elementwise", "reduce_kernel")))
-PROFILE_TOP = 12
+PROFILE_TOP = 12  # kernels of a profile listed by device time
 # PyTorch's own passes that K5 / K6 took in: its gathers and index
 # selections, torch.where and torch.stack / torch.cat; none may be left in
 # a replayed ECG keystream block
 PYTORCH_PASSES = ("index_elementwise_kernel", "gather", "scatter", "where_kernel", "CatArray")
-
-
-def kernel_family(name: str) -> str:
-    for fam, tags in KERNEL_FAMILIES:
-        if any(tag in name for tag in tags):
-            return fam
-    return "other"
 
 
 def profiled(fn) -> dict:
@@ -3411,7 +3309,7 @@ def main():
     rows = kernel_rows(launches, calls) + mont_rows(launches, calls) + elem_rows(launches, calls)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     graph_units["mnist_2fc"] = mnist.pop("graph_units")
-    graph_units["parties_csp_eval"] = parties.pop("graph_unit_csp_eval")
+    graph_units["parties_eval_1fc"] = parties.pop("graph_unit_eval_1fc")
     print(json.dumps({"card": smi, "main_path": stats, "profile": prof, "graphs": graph_units,
                       "mod_switch": mod_switch,
                       "parallel": parallel, "limb": limb, "ecg_full": ecg_full, "1fc": fc, "parties": parties, "cli": cli,

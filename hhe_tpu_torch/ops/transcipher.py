@@ -302,14 +302,10 @@ class Transcipher:
         # encode: slots -> bit-reversed order -> inverse NTT mod t
         poly_br = slot_vecs[..., self._enc_inv_map]
         poly = ntt.ntt_inv(poly_br[..., None, :], self._tb_t)[..., 0, :]  # [4,T,N] mod t
-        return self._lift(poly, ctx.tb_qp)
-
-    def _lift(self, poly: torch.Tensor, tb: ntt.NttTables) -> torch.Tensor:
-        """Plaintext polys mod t [..., N] -> [..., k', N] NTT+Mont over the
-        moduli of ``tb`` (reduce, forward NTT, to Montgomery): the residues
-        of ``Context.plain_for_mul_batch`` / ``plain_for_mul_qp_batch``."""
-        f = ntt.ntt_fwd(rns.reduce_u32(poly[..., None, :], tb.q), tb)
-        return ntt.to_mont(f, tb)
+        # lift to q ∪ P: reduce, forward NTT, to Montgomery (the residues of
+        # ``Context.plain_for_mul_qp_batch``)
+        tb = ctx.tb_qp
+        return ntt.to_mont(ntt.ntt_fwd(rns.reduce_u32(poly[..., None, :], tb.q), tb), tb)
 
     def _encode_scaled(self, slots: torch.Tensor) -> torch.Tensor:
         """Slot vectors int32 [B, N] (values mod t) -> their plaintexts m
@@ -382,49 +378,6 @@ class Transcipher:
                 rc_vecs[r, half : half + T] = rcs2[r]
             return ctx.plain_for_add_batch(ctx.encode_batch(rc_vecs))
 
-    def block_plaintexts(self, nonce: int, b: int):
-        """Per-(nonce, block) round material expanded on the host (cached).
-
-        Diagonal mode: (mats_pt [4, T, k, N] NTT+Mont, rcs_pt [4, k, N]).
-        BSGS mode: ((mats_q [4, T, k, N], mats_qp [4, T, k+1, N]), rcs_pt)
-        with each diagonal pre-rotated left by (i // n1) * n1 within its row.
-        The diagonals and their slot encoding come from the host, as in the
-        JAX package; the lift to NTT+Montgomery form runs on the context's
-        device (the same residues as the JAX package's host lift), and
-        mats_q is the q part of mats_qp."""
-        kcache = (nonce, b, self.use_bsgs)
-        if kcache in self._pt_cache:
-            return self._pt_cache[kcache]
-        ctx = self.ctx
-        half = ctx.n // 2
-        mats1, mats2, _, _ = pasta.block_randomness(ctx.t, nonce, b)
-        i_idx = np.arange(T)[:, None]
-        j_idx = np.arange(T)[None, :]
-        sel = (j_idx + T - i_idx) % T  # diag i entry j: mat[j][(j+T-i)%T]
-        diag_vecs = np.zeros((4, T, ctx.n), np.uint64)
-        for r in range(4):
-            row0 = np.zeros((T, half), np.uint64)
-            row1 = np.zeros((T, half), np.uint64)
-            row0[:, :T] = mats1[r][j_idx, sel]  # [T(i), T(j)]
-            row1[:, :T] = mats2[r][j_idx, sel]
-            if self.use_bsgs:
-                for i in range(self.n1, T):
-                    shift = (i // self.n1) * self.n1
-                    row0[i] = np.roll(row0[i], -shift)
-                    row1[i] = np.roll(row1[i], -shift)
-            diag_vecs[r, :, :half] = row0
-            diag_vecs[r, :, half:] = row1
-        polys = ctx.to_device(ctx.encode_batch(diag_vecs.reshape(4 * T, ctx.n)))
-        polys = polys.reshape(4, T, ctx.n)
-        rcs_pt = self.block_rcs(nonce, b)
-        if self.use_bsgs:
-            mats_qp = self._lift(polys, ctx.tb_qp)
-            out = ((mats_qp[..., : ctx.k, :], mats_qp), rcs_pt)
-        else:
-            out = (self._lift(polys, ctx.tb_q), rcs_pt)
-        self._cache_put(self._pt_cache, self._pt_cache_max, kcache, out)
-        return out
-
     def _keystream_seeded_impl(self, key_data, words, keys):
         """Keystream with the block's round material made on the device
         from its SHAKE words [16, T]."""
@@ -439,17 +392,12 @@ class Transcipher:
         *_giant_idx)]): the same tuple on every call."""
         return self._key_bundle
 
-    def round_mats(self, mats, r: int):
-        """Round r of a round-material bundle: (q part, q ∪ P) for BSGS,
-        the q part alone for the diagonal matmul.  The device expansion
-        gives one [4, T, k+1, N] tensor; ``block_plaintexts`` gives
-        (mats_q, mats_qp) for BSGS and [4, T, k, N] for the diagonal mode."""
-        if isinstance(mats, tuple):
-            return (mats[0][r], mats[1][r]) if self.use_bsgs else mats[r]
+    def round_mats(self, mats: torch.Tensor, r: int):
+        """Round r of a block's [4, T, k+1, N] diagonals (``_expand_impl``'s):
+        (q part, q ∪ P) for BSGS, the q part alone for the diagonal matmul."""
         m = mats[r]
-        if m.shape[-2] == self.ctx.k + 1:
-            return (m[..., : self.ctx.k, :], m) if self.use_bsgs else m[..., : self.ctx.k, :]
-        return m
+        q_part = m[..., : self.ctx.k, :]
+        return (q_part, m) if self.use_bsgs else q_part
 
     def _matmul(self, st: Ciphertext, mats, keys) -> Ciphertext:
         if self.use_bsgs:
@@ -580,34 +528,24 @@ class Transcipher:
     # Public API
     # ------------------------------------------------------------------
 
-    def keystream_ct(
-        self, enc_key: Ciphertext, nonce: int, b: int, expand_on_device: bool = True
-    ) -> Ciphertext:
+    def keystream_ct(self, enc_key: Ciphertext, nonce: int, b: int) -> Ciphertext:
         """BFV ciphertext of the PASTA keystream for block b (cached by key,
-        nonce and block, whichever expansion made it).
-
-        With expand_on_device (default) only the block's SHAKE words cross
-        from the host and its round material is made on the device;
-        otherwise the host expands it (``block_plaintexts``)."""
+        nonce and block), from the block's round material made on the
+        device (``device_block_plaintexts``)."""
         ck = (id(enc_key.data), nonce, b)
         if ck not in self._ks_cache:
-            mats, rcs_pt = self.device_block_plaintexts(nonce, b, expand_on_device)
-            if isinstance(mats, tuple):  # the host's BSGS (q part, q ∪ P): a view of the latter
-                mats = mats[1]
+            mats, rcs_pt = self.device_block_plaintexts(nonce, b)
             out = self._jit_keystream(enc_key.data, mats, rcs_pt, self._keys())
             self._cache_put(
                 self._ks_cache, self._ks_cache_max, ck, (enc_key.data, Ciphertext(out))
             )
         return self._ks_cache[ck][1]
 
-    def device_block_plaintexts(self, nonce: int, b: int, expand_on_device: bool = True):
-        """Per-block round material on the device (cached): made there from
-        the block's SHAKE words, ([4, T, k+1, N] NTT+Mont diagonals, [4, k, N]
-        round constants), or with ``expand_on_device=False`` the host's
-        ``block_plaintexts``."""
-        if not expand_on_device:
-            return self.block_plaintexts(nonce, b)
-        ck = ("dev", nonce, b)
+    def device_block_plaintexts(self, nonce: int, b: int):
+        """Per-block round material, made on the device from the block's
+        SHAKE words (cached by nonce and block): ([4, T, k+1, N] NTT+Mont
+        diagonals, [4, k, N] round constants)."""
+        ck = (nonce, b)
         if ck not in self._pt_cache:
             words = self.block_words(nonce, [b])[0]
             RC_BLOCKS["device"] += 1

@@ -5,7 +5,9 @@ Equivalent of the reference CSP (``src/examples/CSP/CSP.{h,cpp}``,
 ``CSPRPC.cpp``): multi-analyst state keyed by the ``analystid`` request
 metadata, transciphering (decomposition) of user data on arrival,
 decomposition-file checkpointing, encrypted model evaluation, and the result
-callback to the analyst.
+callback to the analyst.  Decomposition and evaluation are the workload's
+``hhe_inference.csp_decompose`` and ``csp_eval_1fc`` (with the log-depth
+sum) on a stack of the analyst's keys.
 
 Fixes replicated-by-design deficiencies of the reference: per-analyst state
 is guarded by a lock and per-request values are not leaked across requests
@@ -31,10 +33,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..ops import bfv, bfv_eval, helin, transcipher
+from ..ops import bfv, transcipher
 from ..ops.bfv import BFVParams, Context
-from ..utils import graphs, metrics, serial
+from ..utils import metrics, serial
 from ..utils.config import RunConfig
+from ..workloads import hhe_inference
 from . import rpc
 from .gen import hhe_pb2 as pb
 
@@ -43,20 +46,16 @@ from .gen import hhe_pb2 as pb
 class AnalystState:
     uuid: str = ""
     address: str = ""
-    pk: Optional[bfv.PublicKey] = None
-    rk: Optional[bfv.KSwitchKey] = None
-    gks: Optional[dict] = None
-    tc: Optional[transcipher.Transcipher] = None
+    # the analyst's public and evaluation keys and a Transcipher on them (no
+    # secret key); it holds the 1FC evaluation's graph unit, which reads the
+    # keys by address and goes with them
+    stack: Optional[hhe_inference.HHEStack] = None
     weight_cts: Optional[List[bfv.Ciphertext]] = None
     enc_key: Optional[bfv.Ciphertext] = None
     # submission length, recorded at addEncryptedData time and used by the
     # evaluate paths (the reference hard-codes 300 at CSPRPC.cpp:196 — a
     # deficiency deliberately not replicated)
     input_len: Optional[int] = None
-    # the per-ciphertext evaluation's graphs (CSP._jit_eval), which read rk,
-    # gks and the weight ciphertext by address: dropped whenever those are
-    # replaced
-    jit_eval: Optional[graphs.Jit] = dataclasses.field(default=None, repr=False)
 
 
 def check_name(what: str, value: str) -> str:
@@ -112,13 +111,12 @@ class CSP:
         with self.lock:
             st.address = analyst_id
             st.uuid = uuid
-            st.pk = serial.load_public_key(msg.pk.data)
-            st.rk = serial.load_kswitch(msg.rk.data, dev)
+            pk = serial.load_public_key(msg.pk.data)
+            rk = serial.load_kswitch(msg.rk.data, dev)
             gks = serial.load_galois_keys(msg.gk.data, dev)
             gks.update(serial.load_galois_keys(msg.csp_gk.data, dev))
-            st.gks = gks
-            st.tc = transcipher.Transcipher(self.ctx, st.rk, gks)
-            st.jit_eval = None
+            tc = transcipher.Transcipher(self.ctx, rk, gks)
+            st.stack = hhe_inference.HHEStack(self.ctx, None, pk, rk, gks, tc)
             self.uuid_to_id[msg.analystUUID] = analyst_id
 
     def add_ml_model(self, analyst_id: str, msg: pb.MLModelMsg):
@@ -127,7 +125,6 @@ class CSP:
             st.weight_cts = [
                 serial.load_ciphertext(w.data, self.ctx.device) for w in msg.weights
             ]
-            st.jit_eval = None
 
     def add_encrypted_keys(self, analyst_id: str, msg: pb.EncSymmetricKeysMsg):
         st = self.state(analyst_id)
@@ -148,8 +145,8 @@ class CSP:
         input_len = records.shape[1]
         self._log(f"decomposing {records.shape[0]} records of length {input_len}")
         with self.device_lock, self.timer.phase("csp"):
-            data_ct = self._decompose(st, records, input_len)
-            cts = self._split(data_ct)
+            data_ct = hhe_inference.csp_decompose(st.stack, st.enc_key, records)
+            cts = hhe_inference.split_batch(data_ct)
             self.ctx.synchronize()
         fname = os.path.join(self.workdir, f"{patient_id}_{st.uuid}.bin")
         with open(fname, "wb") as f:
@@ -157,24 +154,6 @@ class CSP:
         with self.lock:
             st.input_len = input_len
         return fname
-
-    def _decompose(self, st: AnalystState, records: np.ndarray, input_len: int):
-        blocks = st.tc.decompose(st.enc_key, records)
-        tail = input_len % transcipher.T
-        if tail != 0:
-            blocks[-1] = helin.mask(self.ctx, blocks[-1], helin.make_mask(self.ctx, tail))
-        if len(blocks) == 1:
-            return blocks[0]
-        return helin.flatten(self.ctx, blocks, st.gks, transcipher.T)
-
-    @staticmethod
-    def _split(ct: bfv.Ciphertext) -> List[bfv.Ciphertext]:
-        """A batched [2, B, k, N] ciphertext -> B per-sample views [2, k, N]
-        (the NTT wrappers make a view contiguous before a kernel reads it)."""
-        data = ct.data
-        if data.dim() == 3:
-            return [ct]
-        return [bfv.Ciphertext(data[:, i]) for i in range(data.shape[1])]
 
     # ------------------------------------------------------------------
     # Evaluation (reference CSP.cpp:288-323)
@@ -188,33 +167,10 @@ class CSP:
             input_len = st.input_len
         self._log(f"evaluating {len(cts)} cts (input_len={input_len})")
         with self.device_lock, self.timer.phase("csp"):
-            out = [self._eval_one(st, ct) for ct in cts]
+            out = [hhe_inference.csp_eval_1fc(st.stack, ct, st.weight_cts[0], do_sum=True)
+                   for ct in cts]
             self.ctx.synchronize()
         return out
-
-    def _eval_one(self, st: AnalystState, ct: bfv.Ciphertext) -> bfv.Ciphertext:
-        """One ciphertext's evaluation: multiply by the weight ciphertext,
-        relinearize, log-depth vec-sum, through the analyst's unit."""
-        return bfv.Ciphertext(self._jit_eval(st)(ct.data, st.weight_cts[0], st.rk, st.gks))
-
-    def _jit_eval(self, st: AnalystState) -> graphs.Jit:
-        """The per-ciphertext evaluation as one ``utils.graphs`` unit per
-        analyst (the JAX package's ``_jit_eval``): on the card, captured
-        once per layout and replayed.  The ciphertext is its input; the
-        weight ciphertext and the keys are constants read by address, so
-        the unit goes when ``add_public_keys`` or ``add_ml_model`` replaces
-        them."""
-        if st.jit_eval is None:
-            ctx = self.ctx
-
-            def fn(dd, wct, rk, gks):
-                prod = bfv_eval.relinearize(
-                    ctx, bfv_eval.multiply(ctx, bfv.Ciphertext(dd), wct), rk
-                )
-                return helin.encrypted_vec_sum_log(ctx, prod, gks).data
-
-            st.jit_eval = graphs.jit(fn, "csp_eval", ctx)
-        return st.jit_eval
 
 
 class CSPServer:

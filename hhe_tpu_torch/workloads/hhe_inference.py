@@ -31,9 +31,9 @@ Class- and row-batched passes broadcast a data ciphertext ``[2, B, 1, k, N]``
 against stacked weight ciphertexts ``[2, 1, R, k, N]``; the evaluator works
 on any leading shape.
 
-The CSP's entry functions are the spans ``hhe.csp_decompose``,
-``hhe.csp_eval_1fc`` and ``hhe.csp_eval_2fc`` (``utils.trace``); the 2FC
-pass adds ``hhe.2fc.chunk`` for each row chunk and ``hhe.2fc.fc2_consts``
+The CSP's entry functions, which the parties' CSP (``parties.csp``) runs
+too, are the spans ``hhe.csp_decompose``, ``hhe.csp_eval_1fc`` and
+``hhe.csp_eval_2fc`` (``utils.trace``); the 2FC pass adds ``hhe.2fc.chunk`` for each row chunk and ``hhe.2fc.fc2_consts``
 for its scalar constants.
 """
 
@@ -79,10 +79,12 @@ def _debug_noise(stack: "HHEStack", ct: Ciphertext, tag: str, run: Optional[RunC
 
 @dataclasses.dataclass
 class HHEStack:
-    """Bundled parameter set + party keys for single-process simulations."""
+    """Bundled parameter set + party keys: every key for the single-process
+    simulations; a CSP's stack holds the analyst's public and evaluation
+    keys and no secret key (``sk`` None)."""
 
     ctx: Context
-    sk: bfv.SecretKey
+    sk: Optional[bfv.SecretKey]
     pk: bfv.PublicKey
     rk: bfv.KSwitchKey
     gks: Dict[int, bfv.KSwitchKey]
@@ -176,7 +178,8 @@ def csp_eval_1fc(
     ``do_sum`` (the JAX package's ``_jit_1fc_{do_sum}``, kept on the stack
     as the JAX package keeps its jit): on the card, captured once per
     layout and replayed; the data and weight ciphertexts are its inputs,
-    the keys its constants.
+    the keys its constants.  The parties' CSP evaluates each ciphertext
+    through the ``do_sum=True`` unit of its analyst's stack.
 
     With ``mesh`` it runs eagerly on the rank's limbs
     (``Transcipher.on_limbs``'s view): ``data_ct`` is the rank's block
@@ -208,7 +211,10 @@ def _fc_body(ctx, do_sum: bool, dd: torch.Tensor, wd: torch.Tensor, rk, gks) -> 
 # ---------------------------------------------------------------------------
 
 
-def _split_batch(ct: Ciphertext) -> List[Ciphertext]:
+def split_batch(ct: Ciphertext) -> List[Ciphertext]:
+    """A batched [2, B, k, N] ciphertext -> B per-sample views [2, k, N]
+    (the NTT wrappers make a view contiguous before a kernel reads it); an
+    unbatched one -> itself."""
     data = ct.data
     if data.dim() == 3:
         return [Ciphertext(data)]
@@ -224,7 +230,7 @@ def _decrypt_signed_slots(stack: HHEStack, result_ct: Ciphertext) -> np.ndarray:
     if data.dim() == 4 and data.shape[2] == ctx.k:
         return ctx.decode_signed_batch(ctx.decrypt_batch(stack.sk, result_ct))
     return np.stack(
-        [ctx.decode_signed(ctx.decrypt(stack.sk, ct)) for ct in _split_batch(result_ct)]
+        [ctx.decode_signed(ctx.decrypt(stack.sk, ct)) for ct in split_batch(result_ct)]
     )
 
 
@@ -306,7 +312,7 @@ def hhe_1fc_inference(
         result = csp_eval_1fc(stack, data_ct, wct, do_sum=True)
         ctx.synchronize()
     _debug_noise(stack, result, "encrypted FC + vec_sum", run)
-    ledger.add("analyst-csp", metrics.he_vec_size(_split_batch(result)))
+    ledger.add("analyst-csp", metrics.he_vec_size(split_batch(result)))
 
     # Analyst: decrypt
     with timer.phase("analyst"):
@@ -646,7 +652,7 @@ def hhe_fmnist_1fc_inference(
             )
         else:
             data_ct = _encrypt_samples(stack, samples)
-            ledger.add("user-csp", metrics.he_vec_size(_split_batch(data_ct)))
+            ledger.add("user-csp", metrics.he_vec_size(split_batch(data_ct)))
         ctx.synchronize()
     ledger.add("analyst-user", metrics.he_pk_size(stack.pk))
     with timer.phase("analyst"):

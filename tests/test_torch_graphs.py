@@ -19,8 +19,9 @@ kernels without calling them).  With it:
   keystream for L=300) and ``csp_eval_1fc`` with and without the sum,
   first call and replay, each equal to the JAX package's jitted units bit
   for bit;
-- the CSP's per-ciphertext unit, equal to its body, dropped when
-  ``add_public_keys`` or ``add_ml_model`` replaces what it reads;
+- the parties' CSP on its analyst stack's 1FC unit, equal to its body,
+  the weight ciphertext an input, dropped with the stack when
+  ``add_public_keys`` replaces the keys;
 - the two per-call host uploads gone: the galois permutation and BEHZ's
   ``tilde_mod_mtilde`` are device constants read from a cache.
 
@@ -309,7 +310,7 @@ def test_csp_eval_1fc_unit_replay_matches_jax(stacks, rerun):
 
 
 # ---------------------------------------------------------------------------
-# The CSP's per-ciphertext unit
+# The parties' CSP on the 1FC unit
 # ---------------------------------------------------------------------------
 
 
@@ -324,26 +325,38 @@ def csp_env():
 
 
 def test_csp_unit_equals_body_and_is_dropped_with_its_keys(csp_env, rerun):
+    """The parties' CSP evaluates through its analyst stack's 1FC unit with
+    the sum: the results equal ``_fc_body``'s, the second ciphertext
+    replays; ``add_ml_model`` changes the results and not the unit (the
+    weight ciphertext is an input), ``add_public_keys`` makes a new stack
+    and with it a new unit."""
     csp, analyst = csp_env
     ctx = analyst.ctx
     rng = np.random.default_rng(24)
     cts = [ctx.encrypt(analyst.pk, ctx.encode(rng.integers(0, 16, 128))) for _ in range(2)]
     st = csp.state("a")
-    unit = csp._jit_eval(st)
-    assert st.jit_eval is unit and csp._jit_eval(st) is unit
-    bodies = [unit.fn(ct.data, st.weight_cts[0], st.rk, st.gks) for ct in cts]
+    stack = st.stack
+
+    def bodies():
+        return [twk._fc_body(stack.ctx, True, ct.data, st.weight_cts[0].data, stack.rk, stack.gks)
+                for ct in cts]
+
+    want = bodies()
     outs = csp.evaluate_model("a", cts)  # the first call, then a replay
-    assert all(torch.equal(o.data, b) for o, b in zip(outs, bodies))
-    assert len(unit.entries) == 1 and graphs.REPLAYS["csp_eval"] == 1
+    assert all(torch.equal(o.data, b) for o, b in zip(outs, want))
+    unit = stack._jit_1fc_True
+    assert len(unit.entries) == 1 and graphs.REPLAYS["eval_1fc"] == 1
+    analyst.encrypt_model(np.random.default_rng(25).integers(-3, 4, (128, 1)))
     csp.add_ml_model("a", analyst.model_msg())
-    assert st.jit_eval is None
-    csp.evaluate_model("a", cts[:1])
-    assert st.jit_eval is not None and st.jit_eval is not unit
-    unit2 = st.jit_eval
+    want2 = bodies()
+    outs2 = csp.evaluate_model("a", cts)
+    assert st.stack is stack and stack._jit_1fc_True is unit and len(unit.entries) == 1
+    assert all(torch.equal(o.data, b) for o, b in zip(outs2, want2))
+    assert not torch.equal(outs2[0].data, outs[0].data)
     csp.add_public_keys("a", analyst.keys_msg())
-    assert st.jit_eval is None
-    assert torch.equal(csp.evaluate_model("a", cts[:1])[0].data, bodies[0])
-    assert st.jit_eval is not unit2
+    assert st.stack is not stack and "_jit_1fc_True" not in vars(st.stack)
+    assert torch.equal(csp.evaluate_model("a", cts[:1])[0].data, want2[0])
+    assert st.stack._jit_1fc_True is not unit
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,7 @@ def case(name, rng):
         return "reduce", residues(rng, (2, K, N), q)[..., :, None, :], None, qp
     if name == "reduce digits chunk":  # a keyswitch digit chunk: limbs 1..2 only
         return "reduce", residues(rng, (2, K, N), q)[..., 1:3, None, :], None, qp
-    if name == "reduce lift mod t":  # Transcipher._lift: polys mod t [4, T, 1, N] to q and P
+    if name == "reduce lift mod t":  # Transcipher._expand_round_mats: polys mod t [4, T, 1, N] to q and P
         t = torch.tensor([[65537]], dtype=torch.int64)
         return "reduce", residues(rng, (4, 2, 1, N), t), None, qp
     if name == "reduce to 2^31 - 1":  # any value below 2^31, three subtracts

@@ -196,41 +196,36 @@ def test_keystream_ct_matches(stacks):
 
 
 def test_keystream_ct_host_expansion_matches(stacks):
-    """keystream_ct with expand_on_device=False (the host's round material)
-    equals the default device expansion's and the JAX package's keystream,
-    and caches the host bundle, not the device one."""
+    """keystream_ct, from the round material made on the device, equals the
+    JAX package's keystream built from its host expansion
+    (``expand_on_device=False``), and caches the material under (nonce, b)."""
     jt, tt = stacks["jt"], stacks["tt"]
-    fresh = ttr.Transcipher(tt.ctx, tt.rk, stacks["tgks"])
-    host = fresh.keystream_ct(stacks["tkey"], tpasta.NONCE, 0, expand_on_device=False)
-    assert (tpasta.NONCE, 0, True) in fresh._pt_cache
-    assert ("dev", tpasta.NONCE, 0) not in fresh._pt_cache
-    assert torch.equal(host.data, tt.keystream_ct(stacks["tkey"], tpasta.NONCE, 0).data)
-    assert same(host.data, jt.keystream_ct(stacks["jkey"], jpasta.NONCE, 0).data)
+    nonce = tpasta.NONCE + 5
+    want = jt.keystream_ct(stacks["jkey"], nonce, 0, expand_on_device=False)
+    assert (nonce, 0, True) in jt._pt_cache  # the JAX package's host bundle
+    got = tt.keystream_ct(stacks["tkey"], nonce, 0)
+    assert (nonce, 0) in tt._pt_cache
+    assert same(got.data, want.data)
 
 
 @pytest.mark.parametrize("use_bsgs", [True, False], ids=["bsgs", "diagonal"])
 def test_block_plaintexts_match(stacks, use_bsgs):
-    """The host-expanded round material (block_plaintexts) equals the JAX
-    package's in both modes, is cached under (nonce, b, use_bsgs), and
-    gives round_mats the device expansion's operands."""
+    """The device round material (device_block_plaintexts), read through
+    round_mats, equals the JAX package's host expansion (block_plaintexts)
+    round for round in both modes; its round constants equal the JAX
+    package's block_rcs; it is cached under (nonce, b)."""
     jt, tt = stacks["jt"], stacks["tt"]
     if not use_bsgs:
         jt = jtr.Transcipher(jt.ctx, jt.rk, stacks["jgks"], use_bsgs=False)
         tt = ttr.Transcipher(tt.ctx, tt.rk, stacks["tgks"], use_bsgs=False)
-    jm, jr = jt.block_plaintexts(jpasta.NONCE, 1)
-    tm, tr = tt.block_plaintexts(tpasta.NONCE, 1)
-    assert same(tr, jr)
-    if use_bsgs:
-        assert same(tm[0], jm[0]) and same(tm[1], jm[1])
-    else:
-        assert same(tm, jm)
-    assert tt.block_plaintexts(tpasta.NONCE, 1) is tt._pt_cache[(tpasta.NONCE, 1, use_bsgs)]
-    dm, dr = tt.device_block_plaintexts(tpasta.NONCE, 1)
-    assert torch.equal(dr, tr)
+    jm, _ = jt.block_plaintexts(jpasta.NONCE, 1)
+    tm, tr = tt.device_block_plaintexts(tpasta.NONCE, 1)
+    assert tt.device_block_plaintexts(tpasta.NONCE, 1) is tt._pt_cache[(tpasta.NONCE, 1)]
+    assert same(tr, jt.block_rcs(jpasta.NONCE, 1))
     for r in range(4):
-        want, got = tt.round_mats(dm, r), tt.round_mats(tm, r)
+        want, got = jt.round_mats(jm, r), tt.round_mats(tm, r)
         for w, g in zip(want, got) if use_bsgs else [(want, got)]:
-            assert torch.equal(w, g), r
+            assert same(g, w), r
 
 
 def test_keystream_blocks_match(stacks):
@@ -245,7 +240,7 @@ def test_keystream_blocks_match(stacks):
     # both blocks' SHAKE words in one upload
     assert ntt.UPLOADS["calls"] - uploads["calls"] == 1
     assert ntt.UPLOADS["bytes"] - uploads["bytes"] == 2 * 16 * T * 4
-    assert ("dev", nonce, 0) not in tt._pt_cache
+    assert (nonce, 0) not in tt._pt_cache
     for b in (0, 1):
         assert same(tks[b].data, jt.keystream_ct(stacks["jkey"], nonce, b).data), b
 

@@ -22,7 +22,7 @@ from hhe_tpu_torch.utils import checks as tchecks
 from hhe_tpu_torch.utils import config as tconfig
 from hhe_tpu_torch.utils import metrics as tmetrics
 from hhe_tpu_torch.utils import serial as tserial
-from hhe_tpu_torch.workloads.hhe_inference import _split_batch as t_split_batch
+from hhe_tpu_torch.workloads.hhe_inference import split_batch as t_split_batch
 
 CPU = torch.device("cpu")
 PARAMS = dict(n=1024, data_limbs=3, seed=5)

@@ -18,12 +18,12 @@ device keygen, seed 1).  Measured, each synchronised:
   profiler and one kernel-family table), and the busy share of the
   unprofiled ``block_ms``;
 - ``ct_eval_ms``: the least wall time of one ciphertext's evaluation on the
-  parties' path (``CSP._eval_one``: multiply, relinearize and the log-depth
-  vector sum, 13 rotations at N=16384), and its kernels, busy ms and
+  parties' path (``csp_eval_1fc``'s body with ``do_sum=True``: multiply,
+  relinearize and the log-depth vector sum, 13 rotations at N=16384), and its kernels, busy ms and
   families under the profiler;
 - ``block_graph_ms`` and ``ct_graph_ms``: the same two replayed as
   ``utils.graphs`` units (the block through ``Transcipher._jit_keystream``,
-  the ciphertext through a unit of ``CSP._jit_eval``'s body), least wall
+  the ciphertext through a unit of that body), least wall
   time, each with its profile (``block_graph_profile``,
   ``ct_graph_profile``: the replay's kernels, busy ms and families);
 - ``decompose_ms``: the least wall time of ``csp_decompose`` on B=64
