@@ -39,7 +39,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils import trace
+from ..utils import graphs, trace
 from . import bfv_eval, helin, mod_kernels, ntt
 from .bfv import Ciphertext, Context, KSwitchKey
 from .modular import mont_mac, sum_mod
@@ -54,6 +54,8 @@ KEYSWITCH_ROWS: collections.Counter = collections.Counter()
 # stage: "<stage>.launches", "<stage>.terms" ("conv1", "conv2", "fc"; "conv"
 # for a conv layer given no stage name)
 CONTRACTIONS: collections.Counter = collections.Counter()
+# a graph unit's replay credits both, as it credits the launch counts
+graphs.COUNTERS.extend((KEYSWITCH_ROWS, CONTRACTIONS))
 
 
 def _rows(ct: Ciphertext) -> int:

@@ -9,14 +9,19 @@ per-ciphertext evaluation (``hhe_tpu.parties.csp.CSP._jit_eval``).  Run
 eagerly, each is hundreds of small kernels whose host dispatch outlasts
 their device time.  The counterpart of a fixed-shape ``jax.jit`` program on
 a GPU is a captured CUDA graph: ``jit(fn, name, owner)`` returns a callable
-that does this.
+that does this.  The port's units: ``expand``, ``keystream``,
+``keystream_seeded`` and ``finish`` (``ops.transcipher.Transcipher``),
+``eval_1fc`` (``workloads.hhe_inference.csp_eval_1fc``, which the parties'
+CSP runs too) and ``eval_hcnn``, the HCNN's whole evaluation of one image
+(``workloads.he_conv.csp_eval_hcnn``).
 
 - Arguments.  Every positional argument that is a tensor is an input: its
   values are copied on each call into a static buffer that the graph reads
   (a strided view is fine).  Every other argument -- keys, dicts of keys, a
-  ciphertext, a tuple of tables, an int -- is a constant that the graph
-  reads by address: it is part of the entry's key by identity, and the
-  entry holds it, so that its id is not reused while the entry lives.
+  ciphertext, a tuple of tables, a model's plaintexts, an int -- is a
+  constant that the graph reads by address: it is part of the entry's key
+  by identity, and the entry holds it, so that its id is not reused while
+  the entry lives.
   ``fn`` returns a tensor or a tuple of two or more tensors.
 - Entries.  One per layout: the inputs' shapes, dtypes and device and the
   constants' identities, as a new shape re-traces a ``jax.jit``.  At most
@@ -28,8 +33,9 @@ that does this.
   captured on static copies of the inputs, allocated outside the capture,
   into the owner's pool, in ``thread_local`` capture mode (the CSP serves
   gRPC threads, and other CUDA work may run in the process).  The wrappers
-  count the launches they capture: that growth of ``COUNTERS`` is taken back
-  out of them and kept with the entry.
+  count the launches they capture, and ``ops.heconv`` the HCNN's key-switched
+  rows and contractions (its counters join ``COUNTERS`` at its import): that
+  growth of ``COUNTERS`` is taken back out of them and kept with the entry.
 - Later calls.  The inputs are copied into the static buffers, the graph
   replays, the kept growth is added to ``COUNTERS`` (so that the launch
   counts of a path are those of an eager run), ``REPLAYS[name]`` counts the
@@ -69,6 +75,7 @@ from . import trace
 
 MAX_ENTRIES = 8  # layouts kept per callable
 # the counts a replay credits, as the wrappers would have counted its launches
+# (``ops.heconv`` and the benchmark's shape recorder append theirs)
 COUNTERS: List[dict] = [ntt_kernels.LAUNCHES, mod_kernels.LAUNCHES, mod_kernels.FORM_LAUNCHES,
                         mod_kernels.OP_LAUNCHES, mod_kernels.DOWN_LAUNCHES]
 REPLAYS: Dict[str, int] = collections.Counter()  # by unit name

@@ -20,13 +20,17 @@ The CSP's path is ``prepare_hcnn`` once (the analyst's model as conv and FC
 plaintexts on the device), then ``csp_eval_hcnn`` an uploaded image: one
 BFV ciphertext [2, 1, k, N], the image row-major in slots [0, H W), to the
 class-batched logits [2, classes, k, N].  ``hcnn_stages`` is its one
-composition of the layers, which the demo steps through stage by stage.
+composition of the layers: ``csp_eval_hcnn`` runs it to its end as one
+``utils.graphs`` unit (on the card captured once and replayed), and the
+demo steps through it eagerly, stage by stage.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
+import types
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,7 +39,7 @@ import torch
 from ..models import loaders
 from ..ops import bfv, heconv, primes
 from ..ops.bfv import Ciphertext, Context
-from ..utils import trace
+from ..utils import graphs, trace
 
 STAGES = ("fresh", "conv1", "square1", "conv2", "square2", "fc")
 STRIDE = 2  # both convs' (speedtest_he_mnist_works.py:277-357)
@@ -90,11 +94,27 @@ def hcnn_stages(stack, ct: Ciphertext, model: HCNNModel) -> Iterator[Tuple[str, 
 
 def csp_eval_hcnn(stack, ct: Ciphertext, model: HCNNModel) -> Ciphertext:
     """The CSP's evaluation of one uploaded image: ``ct`` [2, 1, k, N] on
-    the device -> the class-batched logits [2, classes, k, N]."""
+    the device -> the class-batched logits [2, classes, k, N].
+
+    One ``utils.graphs`` unit per stack (``stack._jit_hcnn``, as
+    ``csp_eval_1fc`` keeps ``_jit_1fc_{do_sum}``): on the card the whole of
+    ``hcnn_stages`` is captured once per layout and replayed; ``ct.data``
+    is its input, the model (its plaintexts and specs) and the keys its
+    constants.  A CPU ciphertext runs the stages themselves."""
     with trace.span("hhe.csp_eval_hcnn"):
-        for _, out in hcnn_stages(stack, ct, model):
-            pass
-        return out
+        unit = stack.__dict__.get("_jit_hcnn")
+        if unit is None:
+            unit = stack.__dict__["_jit_hcnn"] = graphs.jit(
+                functools.partial(_hcnn_body, stack.ctx), "eval_hcnn", stack.ctx)
+        return Ciphertext(unit(ct.data, model, stack.rk, stack.gks))
+
+
+def _hcnn_body(ctx: Context, data: torch.Tensor, model: HCNNModel, rk, gks) -> torch.Tensor:
+    """``hcnn_stages`` to its last stage on the image's data [2, 1, k, N]."""
+    keys = types.SimpleNamespace(ctx=ctx, rk=rk, gks=gks)
+    for _, out in hcnn_stages(keys, Ciphertext(data), model):
+        pass
+    return out.data
 
 
 def conv_plain_t(n: int = 16384, bits: int = 47) -> int:

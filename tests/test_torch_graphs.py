@@ -23,12 +23,18 @@ kernels without calling them).  With it:
   the weight ciphertext an input, dropped with the stack when
   ``add_public_keys`` replaces the keys;
 - the two per-call host uploads gone: the galois permutation and BEHZ's
-  ``tilde_mod_mtilde`` are device constants read from a cache.
+  ``tilde_mod_mtilde`` are device constants read from a cache;
+- ``csp_eval_hcnn``'s ``eval_hcnn`` unit on a reduced HCNN (N=2048 / 4
+  limbs, 2 second-layer channels): its replay equals the eager body bit for
+  bit, uploads nothing from the host, and grows ``heconv.KEYSWITCH_ROWS``,
+  ``heconv.CONTRACTIONS`` and the launch counters by what one eager
+  evaluation grows them.
 
 The ``cuda`` cases capture units 2 (keystream), 4 (finish) and 5 (the 1FC
 evaluation) at N=2048 on a card and compare them with their bodies under
 ``torch.equal``; they skip without one (chip_smoke.py's graphs phase runs
-every unit at the production layouts)."""
+every unit at the production layouts; the HCNN's unit at the cell's size is
+``test_torch_hcnn_csp.py``'s, a module without JAX)."""
 
 import types
 
@@ -43,14 +49,18 @@ from hhe_tpu.workloads import hhe_inference as jwk
 from hhe_tpu_torch import convert
 from hhe_tpu_torch.ops import bfv as tbfv
 from hhe_tpu_torch.ops import bfv_eval as tev
+from hhe_tpu_torch.ops import heconv
 from hhe_tpu_torch.ops import helin as thelin
 from hhe_tpu_torch.ops import mod_kernels, ntt_kernels
+from hhe_tpu_torch.ops import ntt as tntt
 from hhe_tpu_torch.ops import transcipher as ttr
 from hhe_tpu_torch.parallel import limb_shard
 from hhe_tpu_torch.parties.analyst import Analyst
 from hhe_tpu_torch.parties.csp import CSP
 from hhe_tpu_torch.utils import graphs
+from hhe_tpu_torch.workloads import he_conv
 from hhe_tpu_torch.workloads import hhe_inference as twk
+from tests.test_torch_hcnn_csp import _counts, _grew
 
 PARAMS = dict(n=2048, data_limbs=4, seed=11)  # test_transcipher.py's make_stack(2048, 4)
 CPU = "cpu"
@@ -124,6 +134,15 @@ def _affine(x, w, scale):
     return x * scale + w, x.sum(-1)
 
 
+def _keyswitched(x):
+    """A unit that counts as ``heconv``'s layers do: two ciphertext rows
+    key-switched and one contraction of three terms per call."""
+    heconv.KEYSWITCH_ROWS["conv"] += 2
+    heconv.CONTRACTIONS["conv1.launches"] += 1
+    heconv.CONTRACTIONS["conv1.terms"] += 3
+    return x + 1
+
+
 def _inputs(seed, shape=(3, 8)):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.integers(0, 100, shape)), torch.as_tensor(rng.integers(0, 100, shape))
@@ -167,7 +186,8 @@ def test_replay_equals_body_and_results_are_clones(rerun):
 
 def test_counters_credited_on_every_replay(rerun):
     """The first call counts its eager run; the capture counts nothing; each
-    replay adds what the capture counted, per kernel, form and op."""
+    replay adds what the capture counted, per kernel, form and op, and the
+    HCNN's key-switched rows and contractions."""
     mod_kernels.reset_launches()
     ntt_kernels.reset_launches()
     unit = graphs.jit(_affine, "affine", types.SimpleNamespace())
@@ -183,6 +203,17 @@ def test_counters_credited_on_every_replay(rerun):
         assert mod_kernels.OP_LAUNCHES["add"] == 1 + i
     assert entry.replays == 3 and ntt_kernels.LAUNCHES["ntt_fwd"] == 0
     mod_kernels.reset_launches()
+
+    # the HCNN's counters, as the launch counts
+    hcnn = graphs.jit(_keyswitched, "keyswitched", types.SimpleNamespace())
+    rows, launches, terms = (heconv.KEYSWITCH_ROWS["conv"], heconv.CONTRACTIONS["conv1.launches"],
+                             heconv.CONTRACTIONS["conv1.terms"])
+    for i in range(1, 5):  # the first call, then three replays
+        hcnn(x)
+        assert heconv.KEYSWITCH_ROWS["conv"] == rows + 2 * i
+        assert heconv.CONTRACTIONS["conv1.launches"] == launches + i
+        assert heconv.CONTRACTIONS["conv1.terms"] == terms + 3 * i
+    assert hcnn.entry(x).replays == 3 and hcnn.entry(x).kernels == 0
 
 
 def test_lru_eviction_drops_the_oldest(rerun):
@@ -357,6 +388,89 @@ def test_csp_unit_equals_body_and_is_dropped_with_its_keys(csp_env, rerun):
     assert st.stack is not stack and "_jit_1fc_True" not in vars(st.stack)
     assert torch.equal(csp.evaluate_model("a", cts[:1])[0].data, want2[0])
     assert st.stack._jit_1fc_True is not unit
+
+
+# ---------------------------------------------------------------------------
+# The HCNN's evaluation as one unit
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hcnn_env():
+    """A reduced HCNN on the CPU: N=2048 / 4 limbs at t=65537, the model's
+    conv 1->5, 2 second-layer channels where the model has 50, fc -> 10;
+    seeded 2-bit weights and two images of levels 0..3.  Bit equality needs
+    no decryptable result."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ctx = tbfv.Context(tbfv.BFVParams(n=2048, data_limbs=4, seed=31), device=CPU)
+        rng = np.random.default_rng(31)
+        k1 = rng.integers(-2, 2, (5, 1, 5, 5))
+        k2 = rng.integers(-2, 2, (2, 5, 5, 5))
+        fc = rng.integers(-2, 2, (10, 2 * 4 * 4))
+        sk = ctx.keygen_secret()
+        pk = ctx.keygen_public(sk)
+        elts = heconv.conv_galois_elts(ctx, he_conv.hcnn_specs(k1, k2), 28)
+        rk, gks = ctx.keygen_eval_keys_device(sk, elts, include_relin=True, seed=31)
+        stack = twk.HHEStack(ctx, sk, pk, rk, gks, None)
+        model = he_conv.prepare_hcnn(ctx, k1, k2, fc)
+        cts = [tbfv.Ciphertext(ctx.encrypt(pk, ctx.encode(rng.integers(0, 4, 28 * 28))).data[:, None])
+               for _ in range(2)]
+    finally:
+        torch.set_num_threads(prev)
+    return stack, model, cts
+
+
+def test_eval_hcnn_unit_replay_equals_body_and_credits_counters(hcnn_env, rerun, monkeypatch):
+    """``csp_eval_hcnn`` through its ``eval_hcnn`` unit: the first call runs
+    the body and captures it; the replay, on another image, equals the eager
+    body on that image bit for bit, and the first result keeps its values.
+    The replay uploads nothing from the host, counts one replay, and grows
+    the launch counters (the NTT's, counted here as its wrapper counts on a
+    card) and the HCNN's by exactly what one eager evaluation grows them."""
+    stack, model, cts = hcnn_env
+
+    def counted(name, fn):
+        def launch(x, tb):
+            ntt_kernels.LAUNCHES[name] += 1
+            return fn(x, tb)
+        return launch
+
+    monkeypatch.setattr(tntt, "ntt_fwd", counted("ntt_fwd", tntt.ntt_fwd))
+    monkeypatch.setattr(tntt, "ntt_inv", counted("ntt_inv", tntt.ntt_inv))
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        before = _counts()
+        want = he_conv._hcnn_body(stack.ctx, cts[1].data, model, stack.rk, stack.gks)
+        eager = _grew(before)
+        assert eager[("rows", "square")] == 5 + 2 and eager[("contractions", "fc.launches")] == 1
+        assert eager[("ntt", "ntt_fwd")] > 0
+
+        before = _counts()
+        first = he_conv.csp_eval_hcnn(stack, cts[0], model).data  # the body, then the capture
+        assert _grew(before) == eager  # the body counted; the capture did not
+        assert tuple(first.shape) == (2, 10, 4, 2048) and not torch.equal(first, want)
+        kept = first.clone()
+        assert graphs.CAPTURES["eval_hcnn"] == 1 and not graphs.REPLAYS
+
+        def refuse(*args, **kw):
+            raise AssertionError("a host upload in a replay")
+
+        before = _counts()
+        with monkeypatch.context() as m:
+            m.setattr(torch, "as_tensor", refuse)
+            m.setattr(torch, "tensor", refuse)
+            again = he_conv.csp_eval_hcnn(stack, cts[1], model).data
+        assert _grew(before) == eager
+        assert torch.equal(again, want) and torch.equal(first, kept)
+        unit = stack._jit_hcnn
+        assert len(unit.entries) == 1 and graphs.REPLAYS["eval_hcnn"] == 1
+        assert unit.entry(cts[0].data, model, stack.rk, stack.gks).replays == 1
+        assert graphs.REPLAYED["eval_hcnn"] == eager[("ntt", "ntt_fwd")] + eager[("ntt", "ntt_inv")]
+    finally:
+        torch.set_num_threads(prev)
 
 
 # ---------------------------------------------------------------------------

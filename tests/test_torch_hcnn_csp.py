@@ -15,7 +15,13 @@ under ``torch.profiler``, shared by every case:
 - the spans ``hhe.csp_eval_hcnn`` and ``hhe.hcnn.*`` appear in the profile,
   nested in the request's, and ``trace.counts()`` gives the counters; in
   it ``heconv.CONTRACTIONS`` grows by the contractions (K4 launches on a
-  card) and terms the specs imply."""
+  card) and terms the specs imply.
+
+On a card (``cuda``; it skips without one) at the cell's size, N=16384, 13
+limbs, the 47-bit t and the model's 50 second-layer channels: the replays of
+``csp_eval_hcnn``'s ``eval_hcnn`` graph unit equal the eager body bit for
+bit and credit the counters one eager evaluation grows.  The module imports
+no JAX: on a card, ``pytest --noconftest -m cuda``."""
 
 import math
 
@@ -25,9 +31,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from hhe_bench.reference import hcnn as ref_hcnn
-from hhe_tpu_torch.ops import bfv, heconv
+from hhe_tpu_torch.ops import bfv, heconv, mod_kernels, ntt_kernels
 from hhe_tpu_torch.ops.bfv import Ciphertext
-from hhe_tpu_torch.utils import trace
+from hhe_tpu_torch.utils import graphs, trace
 from hhe_tpu_torch.workloads import he_conv
 from hhe_tpu_torch.workloads.hhe_inference import HHEStack
 
@@ -144,3 +150,55 @@ def test_spans_and_counter_in_the_trace(hcnn):
     assert got == {f"heconv.CONTRACTIONS.{k}": v for k, v in want.items()}
     # at the model's widths (50 second-layer channels): 1 + 5 + 2 launches,
     # 25 + 125 + 50 terms
+
+
+def _counts():
+    """The launch counters and the HCNN's, by name."""
+    named = {"ntt": ntt_kernels.LAUNCHES, "mod": mod_kernels.LAUNCHES,
+             "rows": heconv.KEYSWITCH_ROWS, "contractions": heconv.CONTRACTIONS}
+    return {(n, k): v for n, c in named.items() for k, v in c.items()}
+
+
+def _grew(before):
+    return {k: v - before.get(k, 0) for k, v in _counts().items() if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+def test_eval_hcnn_graph_matches_body_on_cuda():
+    """``csp_eval_hcnn`` at the cell's size: its first call captures the
+    ``eval_hcnn`` unit; two replays, on other images, equal the eager body
+    bit for bit, the first replay's result unchanged by the second, and they
+    credit the launch counters and the HCNN's exactly what two eager
+    evaluations grow (329 rows key-switched each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, c2 = 16384, 50
+    ctx = bfv.Context(bfv.BFVParams(n=n, t=he_conv.conv_plain_t(n), data_limbs=LIMBS, seed=7),
+                      device="cuda")
+    rng = np.random.default_rng(71)
+    k1 = rng.integers(-2, 2, (C1, 1, 5, 5))
+    k2 = rng.integers(-2, 2, (c2, C1, 5, 5))
+    fc = rng.integers(-2, 2, (CLASSES, c2 * 4 * 4))
+    sk = ctx.keygen_secret()
+    pk = ctx.keygen_public(sk)
+    elts = heconv.conv_galois_elts(ctx, he_conv.hcnn_specs(k1, k2, IMG), IMG)
+    rk, gks = ctx.keygen_eval_keys_device(sk, elts, include_relin=True, seed=7)
+    stack = HHEStack(ctx, sk, pk, rk, gks, None)
+    model = he_conv.prepare_hcnn(ctx, k1, k2, fc, IMG)
+    cts = [Ciphertext(ctx.encrypt(pk, ctx.encode(
+        rng.integers(0, 4, IMG * IMG) * (rng.random(IMG * IMG) >= 0.8))).data[:, None])
+        for _ in range(3)]
+    graphs.reset_counts()
+    he_conv.csp_eval_hcnn(stack, cts[0], model)  # the body, then the capture
+    unit = stack._jit_hcnn
+    before = _counts()
+    want = [unit.fn(ct.data, model, rk, gks) for ct in cts[1:]]  # two eager evaluations
+    eager = _grew(before)
+    assert sum(v for (c, _), v in eager.items() if c == "rows") == 2 * 329
+    before = _counts()
+    got = [he_conv.csp_eval_hcnn(stack, ct, model).data for ct in cts[1:]]  # two replays
+    torch.cuda.synchronize()
+    assert _grew(before) == eager
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and not torch.equal(got[0], got[1])
+    assert graphs.REPLAYS["eval_hcnn"] == 2 and graphs.CAPTURES["eval_hcnn"] == 1
+    assert graphs.REPLAYED["eval_hcnn"] == sum(v for (c, _), v in eager.items() if c in ("ntt", "mod"))
