@@ -19,7 +19,15 @@ BFV n=16384, t_bits=47):
   groups, and one inverse NTT ends the layer.
 - The FC scatters each class's weights to the slots where the flattened conv
   output lives: the channel contraction in ``mont_mac`` groups as the
-  conv's, and one log-depth rotate-sum for all classes.
+  conv's, and one log-depth rotate-sum for all classes.  The same layer
+  gives CryptoNets' hidden dense layer, every neuron in every slot of its
+  row, and ``he_scalar_fc`` its last layer over those rows (as it gives the
+  2FC's fc2): integer scalars in one ``mont_mac``, no plaintext polynomial
+  and no rotation.
+- A conv may pad its input at the bottom and right (``ConvSpec.pad``): on
+  the image's slot grid a tap that reads the pad column reads the next
+  row's first pixels instead, so each tap's plaintext zeroes the output
+  slots whose input lies in the pad.
 
 The weighted-mask plaintexts are the JAX package's, array for array, formed
 another way.  The batch encoder is linear mod t, so ``encode(mask * w) =
@@ -42,17 +50,18 @@ import torch
 from ..utils import graphs, trace
 from . import bfv_eval, helin, mod_kernels, ntt
 from .bfv import Ciphertext, Context, KSwitchKey
-from .modular import mont_mac, sum_mod
+from .modular import mont_mac, neg_mod, sum_mod
 
 I64 = torch.int64
 
 # ciphertext rows key-switched, by stage: a rotation or relinearisation of a
 # ciphertext [2, C, k, N] counts C rows ("conv": the taps' rotations,
-# "square": the relinearisations, "fc": the rotate-sum's rotations)
+# "square": the relinearisations, "fc" -- CryptoNets' "dense" -- the
+# rotate-sum's rotations)
 KEYSWITCH_ROWS: collections.Counter = collections.Counter()
 # the contractions (K4 launches on the card) and the terms they summed, by
-# stage: "<stage>.launches", "<stage>.terms" ("conv1", "conv2", "fc"; "conv"
-# for a conv layer given no stage name)
+# stage: "<stage>.launches", "<stage>.terms" ("conv1", "conv2", "fc";
+# CryptoNets' "dense" and "out"; "conv" for a conv layer given no stage name)
 CONTRACTIONS: collections.Counter = collections.Counter()
 # a graph unit's replay credits both, as it credits the launch counts
 graphs.COUNTERS.extend((KEYSWITCH_ROWS, CONTRACTIONS))
@@ -91,19 +100,22 @@ class ConvSpec(NamedTuple):
 
     in_shape: (Ci, H, W) logical input dims; grid_stride: dilation of the
     input on the slot grid (1 for the raw image, product of previous strides
-    after).  Channels are batched ciphertext tensors [size, Ci, k, N], so
-    taps are purely spatial and one rotation serves every channel."""
+    after); pad: zero rows and columns added below and right of the input.
+    Channels are batched ciphertext tensors [size, Ci, k, N], so taps are
+    purely spatial and one rotation serves every channel."""
 
     kernel: np.ndarray  # [Co, Ci, Kh, Kw] int
     in_shape: Tuple[int, int, int]
     stride: int
     grid_stride: int
+    pad: int = 0
 
 
 def conv_out_shape(spec: ConvSpec) -> Tuple[int, int, int]:
     ci, h, w = spec.in_shape
     co, _, kh, kw = spec.kernel.shape
-    return (co, (h - kh) // spec.stride + 1, (w - kw) // spec.stride + 1)
+    p = spec.pad
+    return (co, (h + p - kh) // spec.stride + 1, (w + p - kw) // spec.stride + 1)
 
 
 def conv_tap_offsets(spec: ConvSpec, img_w: int) -> List[int]:
@@ -125,14 +137,21 @@ def conv_galois_elts(ctx: Context, specs: Sequence[ConvSpec], img_w: int) -> Lis
     return sorted(elts)
 
 
-def _valid_mask(spec: ConvSpec, img_w: int, n_slots: int) -> np.ndarray:
-    """1 at the slot of each (oy, ox) output position (input-grid coords)."""
+def _tap_masks(spec: ConvSpec, img_w: int, n_slots: int) -> np.ndarray:
+    """[taps, n_slots]: 1 at the slot of each (oy, ox) output position
+    (input-grid coords) whose input under tap (j, i), (oy s + j, ox s + i),
+    lies inside the input; 0 where it lies in the pad.  Without a pad every
+    tap has the one mask of the output positions."""
+    _, h, w = spec.in_shape
     _, oh, ow = conv_out_shape(spec)
-    g = spec.grid_stride * spec.stride
-    m = np.zeros(n_slots, np.int64)
-    for oy in range(oh):
-        for ox in range(ow):
-            m[(oy * img_w + ox) * g] = 1
+    _, _, kh, kw = spec.kernel.shape
+    s = spec.stride
+    oy, ox = np.arange(oh)[:, None], np.arange(ow)[None, :]
+    slots = ((oy * img_w + ox) * spec.grid_stride * s).reshape(-1)
+    m = np.zeros((kh * kw, n_slots), np.int64)
+    for j in range(kh):
+        for i in range(kw):
+            m[j * kw + i, slots[((oy * s + j < h) & (ox * s + i < w)).reshape(-1)]] = 1
     return m
 
 
@@ -164,16 +183,17 @@ def _plain_for_mul(ctx: Context, polys: torch.Tensor) -> torch.Tensor:
 def conv_plaintexts(ctx: Context, spec: ConvSpec, img_w: int) -> torch.Tensor:
     """Weight-and-validity-masked plaintexts per (spatial tap, in-channel,
     out-channel): [taps, Ci, Co, k, N] NTT+Mont — one fused multiply per tap.
-    Built one tap at a time from the one encoded mask."""
+    Built one tap at a time from its encoded mask (``_tap_masks``: each
+    distinct mask encoded once; without a pad, one for every tap)."""
     co, ci_n, kh, kw = spec.kernel.shape
-    enc_mask = ctx.encode(_valid_mask(spec, img_w, ctx.n // 2)).data[None]
+    masks, which = np.unique(_tap_masks(spec, img_w, ctx.n // 2), axis=0, return_inverse=True)
+    enc = ctx.encode_batch(masks)
     kernel = np.asarray(spec.kernel, np.int64)
     out = torch.empty((kh * kw, ci_n, co, ctx.k, ctx.n), dtype=torch.int32, device=ctx.device)
-    for j in range(kh):
-        for i in range(kw):
-            w = kernel[:, :, j, i].T.reshape(-1, 1)  # rows (ci, o), as the JAX package's
-            out[j * kw + i] = _plain_for_mul(ctx, _weighted_polys(ctx, enc_mask, w)).reshape(
-                ci_n, co, ctx.k, ctx.n)
+    for tap, m in enumerate(which.reshape(-1)):
+        w = kernel[:, :, tap // kw, tap % kw].T.reshape(-1, 1)  # rows (ci, o), as the JAX package's
+        out[tap] = _plain_for_mul(ctx, _weighted_polys(ctx, enc[m][None], w)).reshape(
+            ci_n, co, ctx.k, ctx.n)
     return out
 
 
@@ -249,13 +269,15 @@ def he_fc_from_conv(
     ct: Ciphertext,
     fc_pts: torch.Tensor,
     gks: Dict[int, KSwitchKey],
+    stage: str = "fc",
 ) -> Ciphertext:
     """FC over the channel-batched conv output without repacking.
 
     ct: [size, Co, k, N]; fc_pts: [classes, Co, k, N].  Returns a
     class-batched ciphertext [size, classes, k, N]; after the log-depth
     rotate-sum every slot of row 0 holds the class logit.  The channels
-    contract in ``mont_mac`` groups of ``group_size`` as a conv's taps."""
+    contract in ``mont_mac`` groups of ``group_size`` as a conv's taps.
+    ``stage`` names the layer in ``CONTRACTIONS`` and ``KEYSWITCH_ROWS``."""
     tb = ctx.tb_q
     with trace.span("hhe.hcnn.fc"):
         f = ntt.ntt_fwd(ct.data, tb)[:, None]  # [size, 1, Co, k, N]
@@ -263,11 +285,45 @@ def he_fc_from_conv(
         per = group_size(co, 1)
         acc = torch.empty((co // per, size, fc_pts.shape[0], *kn), dtype=torch.int32, device=f.device)
         for g in range(len(acc)):
-            _contract("fc", f[:, :, g * per:(g + 1) * per], fc_pts[:, g * per:(g + 1) * per], tb, 2,
+            _contract(stage, f[:, :, g * per:(g + 1) * per], fc_pts[:, g * per:(g + 1) * per], tb, 2,
                       acc[g])
         summed = Ciphertext(ntt.ntt_inv(_sum_groups(acc, tb), tb))  # [size, classes, k, N]
-        KEYSWITCH_ROWS["fc"] += _rows(summed) * int(math.log2(ctx.n // 2))  # the rotate-sum's
+        KEYSWITCH_ROWS[stage] += _rows(summed) * int(math.log2(ctx.n // 2))  # the rotate-sum's
         return helin.encrypted_vec_sum_log(ctx, summed, gks)
+
+
+def scalar_fc_consts(ctx: Context, w: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The integer weights w [R, C] of ``he_scalar_fc`` on the context's
+    device: the Montgomery form of |w| mod each q_i [R, C, k, 1] and the
+    sign mask [R, C, 1, 1] (the JAX package's fc2 constants, its per-entry
+    ``to_mont_host`` loop vectorised)."""
+    w = np.asarray(w, np.int64)
+    q = np.asarray(ctx.q_moduli, np.uint64)
+    a = np.abs(w).astype(np.uint64)[:, :, None] % q  # [R, C, k]
+    mont = ((a << np.uint64(32)) % q).astype(np.int64)[..., None]
+    return ntt.upload(mont, ctx.device), ntt.upload((w < 0)[:, :, None, None], ctx.device)
+
+
+def he_scalar_fc(ctx: Context, ct: Ciphertext, w_mont: torch.Tensor, w_neg: torch.Tensor,
+                 stage: str = "out") -> Ciphertext:
+    """A dense layer across ciphertexts that each hold one value in every
+    slot (rows after a square: CryptoNets' last layer, the 2FC's fc2):
+    out_c = sum_r w[r, c] ct_r mod q.
+
+    ct: [size, ..., R, k, N] in the coefficient domain; the integer weights
+    w [R, C] as ``scalar_fc_consts`` gives them: the Montgomery form of |w|
+    mod each q_i [R, C, k, 1], broadcast over the N coefficients, and the
+    sign mask [R, C, 1, 1].  Returns [size, ..., C, k, N]: one ``mont_mac``
+    over R against w's residues, no plaintext polynomial and no rotation,
+    so it costs ~log2(sum |w|) noise bits.
+    ``stage`` names the layer in ``CONTRACTIONS``."""
+    tb = ctx.tb_q
+    with trace.span("hhe.hcnn.scalar_fc"):
+        w = torch.where(w_neg, neg_mod(w_mont, tb.q), w_mont)  # w mod q_i, Montgomery
+        *lead, _, k, n = ct.data.shape
+        out = torch.empty((*lead, w.shape[1], k, n), dtype=ct.data.dtype, device=ct.data.device)
+        _contract(stage, ct.data[..., None, :, :], w, tb, -4, out)
+        return Ciphertext(out)
 
 
 # ---------------------------------------------------------------------------

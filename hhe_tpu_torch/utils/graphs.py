@@ -12,8 +12,9 @@ a GPU is a captured CUDA graph: ``jit(fn, name, owner)`` returns a callable
 that does this.  The port's units: ``expand``, ``keystream``,
 ``keystream_seeded`` and ``finish`` (``ops.transcipher.Transcipher``),
 ``eval_1fc`` (``workloads.hhe_inference.csp_eval_1fc``, which the parties'
-CSP runs too) and ``eval_hcnn``, the HCNN's whole evaluation of one image
-(``workloads.he_conv.csp_eval_hcnn``).
+CSP runs too), ``eval_hcnn``, the HCNN's whole evaluation of one image
+(``workloads.he_conv.csp_eval_hcnn``), and ``eval_cryptonets``, CryptoNets'
+(``workloads.he_conv.csp_eval_cryptonets``).
 
 - Arguments.  Every positional argument that is a tensor is an input: its
   values are copied on each call into a static buffer that the graph reads
@@ -33,8 +34,8 @@ CSP runs too) and ``eval_hcnn``, the HCNN's whole evaluation of one image
   captured on static copies of the inputs, allocated outside the capture,
   into the owner's pool, in ``thread_local`` capture mode (the CSP serves
   gRPC threads, and other CUDA work may run in the process).  The wrappers
-  count the launches they capture, and ``ops.heconv`` the HCNN's key-switched
-  rows and contractions (its counters join ``COUNTERS`` at its import): that
+  count the launches they capture, and ``ops.heconv`` the HCNN's (and
+  CryptoNets') key-switched rows and contractions (its counters join ``COUNTERS`` at its import): that
   growth of ``COUNTERS`` is taken back out of them and kept with the entry.
 - Later calls.  The inputs are copied into the static buffers, the graph
   replays, the kept growth is added to ``COUNTERS`` (so that the launch

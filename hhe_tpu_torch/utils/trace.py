@@ -18,13 +18,14 @@ they cost a flag check each.
 - Names are fixed strings that start with ``hhe.``; none holds a nonce or a
   shape, so that the trace sums them by name.  Nesting gives each span its
   parent; the entry's span (``hhe.csp_decompose``, ``hhe.csp_eval_1fc``,
-  ``hhe.csp_eval_2fc``, ``hhe.csp_eval_hcnn``) gives the request.
+  ``hhe.csp_eval_2fc``, ``hhe.csp_eval_hcnn``, ``hhe.csp_eval_cryptonets``)
+  gives the request.
 - Counters: the port's counter dicts, counted always (a dict increment) in
   their own modules: K1-K6's launch counts (``graphs.COUNTERS``), the
   graph units' replays, captures and replayed launches, the PASTA block
   expansions, the blocks whose round constants were made on the device or
-  on the host, the host-to-device uploads, and the HCNN's key-switched
-  ciphertext rows and contractions by stage.  ``counts()`` gives each one's
+  on the host, the host-to-device uploads, and the HCNN's and CryptoNets'
+  key-switched ciphertext rows and contractions by stage.  ``counts()`` gives each one's
   growth over the last traced stretch: from the first span that saw a
   profiler recording to the first span (or ``counts()``) that saw it stop,
   or to now while it records.

@@ -23,6 +23,19 @@ class-batched logits [2, classes, k, N].  ``hcnn_stages`` is its one
 composition of the layers: ``csp_eval_hcnn`` runs it to its end as one
 ``utils.graphs`` unit (on the card captured once and replayed), and the
 demo steps through it eagerly, stage by stage.
+
+Beside it, CryptoNets' MNIST network (Gilad-Bachrach et al., ICML 2016,
+§4.1, its linear layers 3-6 folded into one weighted sum), one image a
+ciphertext as LoLa evaluates it:
+
+    pad 28x28 to 29x29 (bottom, right) -> conv(1->5, 5x5, s2) -> square
+    -> dense(845->100) -> square -> dense(100->10)
+
+``prepare_cryptonets`` once, then ``csp_eval_cryptonets`` an uploaded image,
+``cryptonets_stages`` its composition: the padded conv, the first dense
+layer as the HCNN's FC (every neuron in every slot of its row after the
+rotate-sum), the last as integer scalars across those rows
+(``heconv.he_scalar_fc``), to the ten logits [2, 10, k, N].
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ from ..ops.bfv import Ciphertext, Context
 from ..utils import graphs, trace
 
 STAGES = ("fresh", "conv1", "square1", "conv2", "square2", "fc")
-STRIDE = 2  # both convs' (speedtest_he_mnist_works.py:277-357)
+STRIDE = 2  # both convs' (speedtest_he_mnist_works.py:277-357), and CryptoNets' conv's
 
 
 class HCNNModel(NamedTuple):
@@ -102,19 +115,93 @@ def csp_eval_hcnn(stack, ct: Ciphertext, model: HCNNModel) -> Ciphertext:
     is its input, the model (its plaintexts and specs) and the keys its
     constants.  A CPU ciphertext runs the stages themselves."""
     with trace.span("hhe.csp_eval_hcnn"):
-        unit = stack.__dict__.get("_jit_hcnn")
-        if unit is None:
-            unit = stack.__dict__["_jit_hcnn"] = graphs.jit(
-                functools.partial(_hcnn_body, stack.ctx), "eval_hcnn", stack.ctx)
-        return Ciphertext(unit(ct.data, model, stack.rk, stack.gks))
+        return _replayed(stack, "hcnn", _hcnn_body, ct, model)
+
+
+def _replayed(stack, name: str, body, ct: Ciphertext, model) -> Ciphertext:
+    """``body`` on ``ct``'s data as the stack's ``utils.graphs`` unit
+    ``eval_<name>``, kept as ``stack._jit_<name>``."""
+    unit = stack.__dict__.get(f"_jit_{name}")
+    if unit is None:
+        unit = stack.__dict__[f"_jit_{name}"] = graphs.jit(
+            functools.partial(body, stack.ctx), f"eval_{name}", stack.ctx)
+    return Ciphertext(unit(ct.data, model, stack.rk, stack.gks))
+
+
+def _last_stage(stages, ctx: Context, data: torch.Tensor, model, rk, gks) -> torch.Tensor:
+    """``stages`` to its last stage on the image's data [2, 1, k, N]."""
+    keys = types.SimpleNamespace(ctx=ctx, rk=rk, gks=gks)
+    for _, out in stages(keys, Ciphertext(data), model):
+        pass
+    return out.data
 
 
 def _hcnn_body(ctx: Context, data: torch.Tensor, model: HCNNModel, rk, gks) -> torch.Tensor:
     """``hcnn_stages`` to its last stage on the image's data [2, 1, k, N]."""
-    keys = types.SimpleNamespace(ctx=ctx, rk=rk, gks=gks)
-    for _, out in hcnn_stages(keys, Ciphertext(data), model):
-        pass
-    return out.data
+    return _last_stage(hcnn_stages, ctx, data, model, rk, gks)
+
+
+class CryptoNetsModel(NamedTuple):
+    """The analyst's CryptoNets network as the CSP holds it, on the
+    context's device."""
+
+    spec1: heconv.ConvSpec  # conv 1 -> C1, 5x5, its stride and pad
+    pts1: torch.Tensor  # [taps, 1, C1, k, N] NTT + Montgomery
+    dense_pts: torch.Tensor  # [hidden, C1, k, N] NTT + Montgomery
+    out_mont: torch.Tensor  # [hidden, classes, k, 1] Montgomery |w| mod q_i
+    out_neg: torch.Tensor  # [hidden, classes, 1, 1] where w < 0
+    img_w: int
+
+
+def cryptonets_spec(k1: np.ndarray, img: int = 28, stride: int = STRIDE, pad: int = 1) -> heconv.ConvSpec:
+    """CryptoNets' conv on an img x img image's slot grid, the image padded
+    below and right (to 29 x 29 at img 28)."""
+    return heconv.ConvSpec(k1, (1, img, img), stride, 1, pad)
+
+
+def prepare_cryptonets(ctx: Context, k1: np.ndarray, w_dense: np.ndarray, w_out: np.ndarray,
+                       img: int = 28, stride: int = STRIDE, pad: int = 1) -> CryptoNetsModel:
+    """Integer weights k1 [C1, 1, 5, 5], w_dense [hidden, C1 * oh * ow] (the
+    flatten channel-major; 845 columns at img 28) and w_out [classes,
+    hidden] -> the model's plaintexts and, for ``heconv.he_scalar_fc``, the
+    last layer's constants (``heconv.scalar_fc_consts``)."""
+    spec = cryptonets_spec(k1, img, stride, pad)
+    out_mont, out_neg = heconv.scalar_fc_consts(ctx, np.asarray(w_out, np.int64).T)
+    return CryptoNetsModel(spec, heconv.conv_plaintexts(ctx, spec, img),
+                           heconv.fc_plaintexts(ctx, w_dense, spec, img), out_mont, out_neg, img)
+
+
+def cryptonets_stages(stack, ct: Ciphertext, model: CryptoNetsModel) -> Iterator[Tuple[str, Ciphertext]]:
+    """(stage, its output) for "conv1", "square1", "dense", "square2" and
+    "out" in order, from the encrypted image ``ct`` [2, 1, k, N]: the conv's
+    channels [2, C1, k, N], the dense layer's neurons [2, hidden, k, N]
+    (every slot of row 0 holding its neuron after the rotate-sum), and last
+    the classes [2, classes, k, N], every slot of row 0 holding that class's
+    logit."""
+    ctx = stack.ctx
+    a = heconv.he_conv2d(ctx, ct, model.spec1, model.pts1, stack.gks, model.img_w, "conv1")
+    yield "conv1", a
+    a = heconv.he_square(ctx, a, stack.rk)
+    yield "square1", a
+    a = heconv.he_fc_from_conv(ctx, a, model.dense_pts, stack.gks, "dense")
+    yield "dense", a
+    a = heconv.he_square(ctx, a, stack.rk)
+    yield "square2", a
+    yield "out", heconv.he_scalar_fc(ctx, a, model.out_mont, model.out_neg, "out")
+
+
+def csp_eval_cryptonets(stack, ct: Ciphertext, model: CryptoNetsModel) -> Ciphertext:
+    """The CSP's evaluation of one uploaded image through CryptoNets: ``ct``
+    [2, 1, k, N] on the device -> the logits [2, classes, k, N].  One
+    ``utils.graphs`` unit per stack (``stack._jit_cryptonets``, unit
+    ``eval_cryptonets``), as ``csp_eval_hcnn``'s."""
+    with trace.span("hhe.csp_eval_cryptonets"):
+        return _replayed(stack, "cryptonets", _cryptonets_body, ct, model)
+
+
+def _cryptonets_body(ctx: Context, data: torch.Tensor, model: CryptoNetsModel, rk, gks) -> torch.Tensor:
+    """``cryptonets_stages`` to its last stage on the image's data [2, 1, k, N]."""
+    return _last_stage(cryptonets_stages, ctx, data, model, rk, gks)
 
 
 def conv_plain_t(n: int = 16384, bits: int = 47) -> int:

@@ -49,9 +49,9 @@ import numpy as np
 import torch
 
 from ..models import loaders, pocketnn
-from ..ops import bfv, bfv_eval, helin, ntt, pasta, transcipher
+from ..ops import bfv, bfv_eval, heconv, helin, pasta, transcipher
 from ..ops.bfv import BFVParams, Ciphertext, Context
-from ..ops.modular import add_mod, mont_mul, neg_mod, tree_add_mod
+from ..ops.modular import add_mod
 from ..utils import checks, graphs, metrics, trace
 from ..utils.config import Config, RunConfig
 
@@ -373,15 +373,10 @@ def hhe_ecg_inference(
 
 
 def _fc2_scalar_consts(ctx: Context, w2: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Montgomery |w2| per limb [R, C, k, 1] and sign mask [R, C, 1, 1] for
-    the small-norm fc2, on the context's device (the JAX package's per-entry
-    ``to_mont_host`` loop, vectorised)."""
+    """The small-norm fc2's constants, ``heconv.scalar_fc_consts``: Montgomery
+    |w2| per limb [R, C, k, 1] and the sign mask [R, C, 1, 1]."""
     with trace.span("hhe.2fc.fc2_consts"):
-        w2 = np.asarray(w2, np.int64)
-        q = np.asarray(ctx.q_moduli, np.uint64)
-        a = np.abs(w2).astype(np.uint64)[:, :, None] % q  # [R, C, k]
-        mont = ((a << np.uint64(32)) % q).astype(np.int64)[..., None]
-        return ntt.upload(mont, ctx.device), ntt.upload((w2 < 0)[:, :, None, None], ctx.device)
+        return heconv.scalar_fc_consts(ctx, w2)
 
 
 def _2fc_chunk(
@@ -394,12 +389,10 @@ def _2fc_chunk(
 ) -> torch.Tensor:
     """One 2FC pass over a chunk of R hidden rows: BEHZ multiply of the data
     [2, B, k, N] with the stacked rows [2, R, k, N], relinearize, log-depth
-    vec-sum, square, relinearize, and the chunk's fc2 partial [2, B, C, k, N].
-
-    The fc2 term is formed one class at a time, so its int64 temporaries are
-    [2, B, R, k, N] and not C times that; the sums are the same modular
-    additions in the same tree, so the result is bit-identical.
-    ``digit_chunk`` bounds the relinearize hoist (bit-identical; see
+    vec-sum, square, relinearize, and the chunk's fc2 partial [2, B, C, k, N]
+    (``heconv.he_scalar_fc``, one ``mont_mac`` over the R rows; its sums are
+    exact mod q, so the result is the JAX package's per-class tree, bit for
+    bit).  ``digit_chunk`` bounds the relinearize hoist (bit-identical; see
     ``bfv_eval.keyswitch``)."""
     ctx = stack.ctx
     a = Ciphertext(dd[:, :, None])  # [2, B, 1, k, N]
@@ -411,13 +404,7 @@ def _2fc_chunk(
     sq = bfv_eval.relinearize(
         ctx, bfv_eval.square(ctx, sums), stack.rk, digit_chunk=digit_chunk
     ).data
-    q, qi = ctx.tb_q.q, ctx.tb_q.qinv_neg
-    logits = []
-    for c in range(w2_mont.shape[1]):
-        term = mont_mul(sq, w2_mont[:, c], q, qi)  # [2, B, R, k, N]
-        term = torch.where(w2_neg[:, c], neg_mod(term, q), term)
-        logits.append(tree_add_mod(term, q, axis=2)[:, :, 0])
-    return torch.stack(logits, dim=2)  # [2, B, C, k, N]
+    return heconv.he_scalar_fc(ctx, Ciphertext(sq), w2_mont, w2_neg, "fc2").data  # [2, B, C, k, N]
 
 
 def csp_eval_2fc(
@@ -435,9 +422,9 @@ def csp_eval_2fc(
        relinearize, log-depth rotate-reduce (each row ct then holds its
        neuron's value in every slot);
     2. square activation: batched ct x ct square + relinearize;
-    3. fc2: logit_c = sum_r sign(w2[r,c]) * |w2[r,c]| * sq_r — scalar
-       Montgomery multiplies, negates and adds, costing ~log2(sum|w2|) noise
-       bits instead of the ~log2(N*t) of a full-slot plaintext multiply.
+    3. fc2: logit_c = sum_r w2[r,c] * sq_r — integer scalars across the
+       rows (``heconv.he_scalar_fc``), costing ~log2(sum|w2|) noise bits
+       instead of the ~log2(N*t) of a full-slot plaintext multiply.
 
     data_ct: [2, k, N] or batched [2, B, k, N].  Returns a class-batched
     ciphertext [2, B, C, k, N] (or [2, C, k, N] unbatched): logit c lives in
